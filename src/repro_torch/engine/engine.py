@@ -1,0 +1,271 @@
+"""The traversal engine: the port's entry point for BFS queries.
+
+    from repro_torch.engine import Engine
+    engine = Engine(graph)                      # on the GPU; device="cpu" asks
+    result = engine.bfs([r0, r1, ...])          # batch or single root
+    result.validate(graph)
+
+The port of the JAX package's `engine/engine.py`, `fused` backend. A batch
+of B roots runs the batched cohort model (`repro_torch.core.bfs`) on the
+shared `LevelDriver`: per level the batch splits into a top-down cohort, a
+bottom-up cohort and the finished lanes, and each direction runs once over
+its masked cohort. Batches pad to a power-of-two bucket (at least 8) with
+inactive lanes. Unbatched (Graph500) mode runs the same cohort step at
+bucket 1, one root at a time, timed per root.
+
+The `sharded` and `stepper` backends are not ported yet and raise
+`NotImplementedError`; with one device, `auto` resolves to `fused`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core import bfs as B
+from repro_torch.core.bfs import BFSConfig
+from repro_torch.core.graph import Graph
+from repro_torch.engine.level_loop import (CohortBatchBackend, LevelDriver,
+                                           QueryCancelled, QueryControl,
+                                           QueryDeadlineExceeded)
+from repro_torch.engine.result import (TraversalResult,
+                                       edges_traversed_from_levels)
+from repro_torch.engine.session import GraphSession
+
+BACKENDS = ("fused", "sharded", "stepper")
+
+NOT_PORTED = {
+    "sharded": ("backend='sharded' is not ported yet: ROADMAP.md queue 1 "
+                "item 8 (multi-GPU BSP on torch.distributed)"),
+    "stepper": ("backend='stepper' is not ported yet: ROADMAP.md queue 1 "
+                "items 7-8 (single-root core/bfs.py and BSPStepBackend)"),
+}
+
+RootsLike = Union[int, np.integer, Sequence[int], np.ndarray]
+
+# Batched queries pad to the next power of two, floored at this bucket, so
+# ragged batch sizes share step functions (batch 1 stays 1: Graph500 mode).
+MIN_BATCH_BUCKET = 8
+
+
+def _bucket_batch(batch: int) -> int:
+    """Batch bucket: 1, or the next power of two >= 8."""
+    if batch <= 1:
+        return 1
+    return max(MIN_BATCH_BUCKET, 1 << (batch - 1).bit_length())
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryPlan:
+    """Fully resolved query parameters (hashable): queries with equal plans
+    run the same cached step functions."""
+    backend: str              # resolved: "fused"
+    n_parts: int
+    cfg: BFSConfig
+
+
+def _tree_depth(level: np.ndarray) -> np.ndarray:
+    """Deepest discovered BFS level per root (0 when only the root)."""
+    return np.where(level >= 0, level, 0).max(axis=1).astype(np.int32)
+
+
+class Engine:
+    """Facade over a `GraphSession`: build once, query many times.
+
+    `device` defaults to the GPU; without CUDA that raises, and a caller
+    that wants the CPU (the tests) passes `device="cpu"`.
+    """
+
+    def __init__(self, graph_or_session: Union[Graph, GraphSession], *,
+                 device=None):
+        if isinstance(graph_or_session, GraphSession):
+            if device is not None:
+                raise ValueError("device only applies when passing a Graph")
+            self.session = graph_or_session
+        else:
+            self.session = GraphSession(graph_or_session, device=device)
+
+    @property
+    def graph(self) -> Graph:
+        return self.session.graph
+
+    @property
+    def device(self) -> torch.device:
+        return self.session.device
+
+    # ----------------------------------------------------------- selection --
+
+    @staticmethod
+    def _resolve(backend: str, n_parts: Optional[int]):
+        if backend not in BACKENDS + ("auto",):
+            raise ValueError(f"unknown backend {backend!r}; "
+                             f"want one of {BACKENDS + ('auto',)}")
+        if n_parts is None:
+            n_parts = 1
+        if backend == "auto":
+            backend = "fused" if n_parts == 1 else "sharded"
+        if backend in NOT_PORTED:
+            raise NotImplementedError(NOT_PORTED[backend])
+        if n_parts != 1:
+            raise ValueError("fused backend is single-partition; "
+                             f"got n_parts={n_parts}")
+        return backend, n_parts
+
+    @staticmethod
+    def _normalize_cfg(cfg) -> BFSConfig:
+        if cfg is None:
+            return BFSConfig()
+        if isinstance(cfg, BFSConfig):
+            return cfg
+        raise TypeError(f"cfg must be a BFSConfig, got {type(cfg)}")
+
+    def _normalize_roots(self, roots: RootsLike) -> np.ndarray:
+        arr = np.atleast_1d(np.asarray(roots, dtype=np.int64))
+        if arr.ndim != 1:
+            raise ValueError(f"roots must be a scalar or 1-D, got {arr.shape}")
+        v = self.graph.num_vertices
+        if arr.size:
+            if v == 0:
+                raise ValueError("cannot run BFS on an empty (0-vertex) graph")
+            if arr.min() < 0 or arr.max() >= v:
+                raise ValueError(f"roots out of range [0, {v})")
+        return arr
+
+    # --------------------------------------------------------------- query --
+
+    def plan(self, cfg=None, *, backend: str = "auto",
+             n_parts: Optional[int] = None) -> QueryPlan:
+        """Resolve query knobs into a canonical, hashable `QueryPlan`."""
+        cfg = self._normalize_cfg(cfg)
+        backend, n_parts = self._resolve(backend, n_parts)
+        return QueryPlan(backend, n_parts, cfg)
+
+    def bfs(self, roots: RootsLike, cfg=None, *, backend: str = "auto",
+            n_parts: Optional[int] = None, batched: bool = True,
+            validate: bool = False, on_level: Optional[Callable] = None,
+            control: Optional[QueryControl] = None) -> TraversalResult:
+        """Run BFS from one root or a batch of roots.
+
+        Args:
+          roots: int or 1-D int array of vertex ids.
+          cfg: `BFSConfig` (heuristic and tuning knobs).
+          backend: "auto" | "fused" ("sharded"/"stepper" are not ported).
+          n_parts: partition count; only 1 is supported.
+          batched: True runs the batch as one cohort search (per-root
+            seconds are an even split); False runs and times roots one at a
+            time (the Graph500 measurement mode).
+          validate: check every parent tree against the numpy oracle.
+          on_level: batched mode only; `on_level(-1, row)` receives each
+            level's batch row the moment it lands on the host.
+          control: `QueryControl` checked before dispatch, between roots,
+            and once per level; aborts raise `QueryCancelled` /
+            `QueryDeadlineExceeded` carrying the partial per-level stats.
+        """
+        qp = self.plan(cfg, backend=backend, n_parts=n_parts)
+        return self.bfs_plan(roots, qp, batched=batched, validate=validate,
+                             on_level=on_level, control=control)
+
+    def bfs_plan(self, roots: RootsLike, plan: QueryPlan, *,
+                 batched: bool = True, validate: bool = False,
+                 on_level: Optional[Callable] = None,
+                 control: Optional[QueryControl] = None) -> TraversalResult:
+        """Run a query whose knobs were already resolved by `plan()`."""
+        if plan.backend in NOT_PORTED:
+            raise NotImplementedError(NOT_PORTED[plan.backend])
+        if on_level is not None and not batched:
+            raise ValueError("on_level streaming needs the batched fused "
+                             "path (batched=True)")
+        if control is not None:
+            control.check()
+        roots_arr = self._normalize_roots(roots)
+        if roots_arr.size == 0:
+            v = self.graph.num_vertices
+            return TraversalResult(
+                roots=roots_arr, parent=np.empty((0, v), np.int32),
+                level=np.empty((0, v), np.int32),
+                num_levels=np.empty((0,), np.int32), seconds=0.0,
+                per_root_seconds=np.empty((0,)), backend=plan.backend,
+                n_parts=plan.n_parts,
+                edges_undirected=self.graph.num_undirected_edges,
+                edges_traversed=np.empty((0,), np.int64))
+        res = self._bfs_fused(roots_arr, plan.cfg, batched, control, on_level)
+        res.edges_traversed = edges_traversed_from_levels(self.graph.degrees,
+                                                          res.level)
+        if validate:
+            res.validate(self.graph)
+        return res
+
+    # --------------------------------------------------------- fused path --
+
+    def _cohort_backend(self, cfg: BFSConfig,
+                        bucket: int) -> CohortBatchBackend:
+        """Cohort driver backend for a batch bucket, step functions cached
+        per (config, bucket, variant); a forced single-direction heuristic
+        has only its one reachable variant."""
+        sess = self.session
+        sess.ensure_kernels()
+        dg = sess.device_graph()
+        ell = sess.ell_tiles()
+        steps = {
+            var: sess.cached(("cohort", cfg, bucket, var),
+                             lambda v=var: B.make_batch_step(dg, cfg, v, ell))
+            for var in B.reachable_variants(cfg)
+        }
+        return CohortBatchBackend(
+            lambda roots, active: B.init_batch(dg, cfg, roots, active),
+            steps, dg.num_vertices, bucket, sess.device)
+
+    def _lanes(self, roots: np.ndarray, bucket: int):
+        """Roots padded to `bucket` (pad lanes repeat roots[0] and start
+        inactive) as device tensors."""
+        padded = np.full(bucket, roots[0], dtype=np.int32)
+        padded[:len(roots)] = roots
+        active = np.arange(bucket) < len(roots)
+        return (torch.from_numpy(padded).to(self.device),
+                torch.from_numpy(active).to(self.device))
+
+    def _bfs_fused(self, roots_arr, cfg, batched, control=None,
+                   on_level=None) -> TraversalResult:
+        e_und = self.graph.num_undirected_edges
+        if batched:
+            b = len(roots_arr)
+            bucket = _bucket_batch(b)
+            backend = self._cohort_backend(cfg, bucket)
+            lanes = self._lanes(roots_arr, bucket)
+            if control is not None:
+                control.check()
+            cb = (lambda row: on_level(-1, row)) if on_level else None
+            t0 = time.perf_counter()
+            try:
+                parent, level, rows = LevelDriver(backend).run(
+                    *lanes, cb, control)
+            except (QueryCancelled, QueryDeadlineExceeded) as e:
+                e.per_level_stats = [e.per_level_stats]
+                raise
+            dt = time.perf_counter() - t0
+            parent, level = parent[:b], level[:b]
+            return TraversalResult(roots_arr, parent, level,
+                                   _tree_depth(level), dt, np.full(b, dt / b),
+                                   "fused", 1, e_und,
+                                   batch_level_stats=rows)
+        # Graph500 mode: one root at a time through the B=1 cohort.
+        backend = self._cohort_backend(cfg, 1)
+        parents, levels, per_root = [], [], []
+        for r in roots_arr:
+            if control is not None:
+                control.check()
+            lanes = self._lanes(np.asarray([r]), 1)
+            t0 = time.perf_counter()
+            parent, level, _rows = LevelDriver(backend).run(
+                *lanes, None, control)
+            per_root.append(time.perf_counter() - t0)
+            parents.append(parent[0])
+            levels.append(level[0])
+        per_root = np.asarray(per_root)
+        level = np.stack(levels)
+        return TraversalResult(roots_arr, np.stack(parents), level,
+                               _tree_depth(level), float(per_root.sum()),
+                               per_root, "fused", 1, e_und)

@@ -1,0 +1,98 @@
+"""The port stands alone: no JAX, nothing of the JAX package, no quiet CPU.
+
+* an AST scan of `src/repro_torch/**` and `chip_smoke.py` for imports of
+  `jax` or `repro`;
+* a subprocess that blocks both on `sys.meta_path`, imports the port and
+  runs a CPU search;
+* `Engine(g)` with no device asks for CUDA and raises without it.
+"""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import graph as TG
+from repro_torch.engine import Engine
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
+    [REPO / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
+def test_port_imports_neither_jax_nor_repro(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                node.level == 0 and _forbidden(node.module):
+            bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+BLOCKED_RUN = r"""
+import importlib.abc, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import numpy as np
+from repro_torch.core import graph as G
+from repro_torch.engine import Engine
+g = G.rmat(8, seed=1)
+res = Engine(g, device="cpu").bfs([0, 5, 9], validate=True)
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
+               for m in sys.modules)
+print("levels", int(res.num_levels.max()))
+"""
+
+
+def test_port_runs_with_jax_and_repro_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO / "src")
+    out = subprocess.run([sys.executable, "-c", BLOCKED_RUN], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("levels")
+
+
+def test_engine_without_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = TG.rmat(6, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(g)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(g, device="cuda")
+    res = Engine(g, device="cpu").bfs(int(np.argmax(g.degrees)))
+    assert res.parent.shape == (1, g.num_vertices)
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """No CUDA: a nonzero exit and no result line. Alone in a directory
+    (no repo around it) it fails too."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    for cwd, script in ((REPO, REPO / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            script.write_text((REPO / "chip_smoke.py").read_text())
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout

@@ -1,0 +1,213 @@
+"""The port's kernel wrappers against the JAX package's Pallas kernels.
+
+On the CPU, `repro_torch.kernels.ops` runs each kernel's plain PyTorch
+version; the JAX side runs the Pallas kernels in interpret mode. Inputs are
+made with numpy from a seed and every output is an integer, so equality is
+exact. The CUDA kernels themselves are checked on the card
+(`chip_smoke.py` and the `cuda`-marked test below).
+"""
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ops as jops
+from repro_torch.kernels import _build
+from repro_torch.kernels import bottomup as tbu
+from repro_torch.kernels import frontier_fused as tff
+from repro_torch.kernels import ops
+from repro_torch.kernels import topdown as ttd
+
+
+def _inputs(seed, b, r, w, v, masked=0, p_deg0=0.25, density=0.1):
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(1, w + 1, (b, r)).astype(np.int32)
+    deg[rng.random((b, r)) < p_deg0] = 0           # degree-0 rows
+    if masked:
+        deg[b - masked:] = 0                       # lanes out of the cohort
+    nbrs = rng.integers(-2, v + 2, (r, w)).astype(np.int32)   # clipped ids
+    table = (rng.random((b, v)) < density).astype(np.uint8)
+    return deg, nbrs, table
+
+
+def _eq(mine, ref):
+    mine = mine.numpy()
+    ref = np.asarray(ref)
+    assert mine.dtype == ref.dtype, (mine.dtype, ref.dtype)
+    np.testing.assert_array_equal(mine, ref)
+
+
+# (B, R, W, V, masked lanes, slab): ragged R and V, masked lanes, W not a
+# multiple of the slab, B = 1.
+SHAPES = [(1, 5, 32, 37, 0, 32), (8, 130, 40, 257, 3, 32),
+          (3, 9, 96, 100, 1, 32), (2, 64, 33, 1000, 0, 8)]
+
+
+@pytest.mark.parametrize("b,r,w,v,masked,slab", SHAPES)
+def test_bottomup_batch_matches_pallas(b, r, w, v, masked, slab):
+    deg, nbrs, fr = _inputs(r * 31 + w, b, r, w, v, masked)
+    f1, p1 = ops.bottomup_batch(torch.from_numpy(deg), torch.from_numpy(nbrs),
+                                torch.from_numpy(fr), slab=slab)
+    f2, p2 = jops.bottomup_batch(jnp.asarray(deg), jnp.asarray(nbrs),
+                                 jnp.asarray(fr), slab=slab, interpret=True)
+    _eq(f1, f2)
+    _eq(p1, p2)
+    assert f1.sum() > 0                       # some rows found a parent
+
+
+@pytest.mark.parametrize("b,r,w,v,masked,slab", SHAPES)
+def test_topdown_batch_matches_pallas(b, r, w, v, masked, slab):
+    deg, nbrs, vis = _inputs(r * 17 + w, b, r, w, v, masked, density=0.5)
+    f1 = ops.topdown_batch(torch.from_numpy(deg), torch.from_numpy(nbrs),
+                           torch.from_numpy(vis))
+    f2 = jops.topdown_batch(jnp.asarray(deg), jnp.asarray(nbrs),
+                            jnp.asarray(vis), interpret=True)
+    _eq(f1, f2)
+
+
+@pytest.mark.parametrize("b,v", [(1, 37), (8, 257), (3, 8192), (2, 10000)])
+def test_frontier_fused_batch_matches_pallas(b, v):
+    rng = np.random.default_rng(v)
+    flags = (rng.random((b, v)) < 0.3).astype(np.uint8)
+    flags[-1] = 0                                   # an empty lane
+    deg = rng.integers(0, 5000, v).astype(np.int32)
+    pk1, nf1, mf1 = ops.frontier_fused_batch(torch.from_numpy(flags),
+                                             torch.from_numpy(deg))
+    pk2, nf2, mf2 = jops.frontier_fused_batch(jnp.asarray(flags),
+                                              jnp.asarray(deg),
+                                              interpret=True)
+    _eq(pk1, pk2)
+    _eq(nf1, nf2)
+    _eq(mf1, mf2)
+
+
+def test_frontier_fused_mf_near_int32_limit():
+    """Degrees summing to 2^31 - 1 per lane: int32 exactly at the top."""
+    v = 4096
+    deg = np.full(v, (2**31 - 1) // v, np.int32)
+    deg[0] += (2**31 - 1) - int(deg.astype(np.int64).sum())
+    flags = np.ones((2, v), np.uint8)
+    flags[1, 0] = 0
+    _, nf1, mf1 = ops.frontier_fused_batch(torch.from_numpy(flags),
+                                           torch.from_numpy(deg))
+    _, nf2, mf2 = jops.frontier_fused_batch(jnp.asarray(flags),
+                                            jnp.asarray(deg), interpret=True)
+    assert mf1.tolist()[0] == 2**31 - 1
+    _eq(nf1, nf2)
+    _eq(mf1, mf2)
+
+
+def test_empty_tiles_return_empty_outputs():
+    z = torch.zeros
+    for b, r in ((0, 5), (3, 0), (0, 0)):
+        found, parent = ops.bottomup_batch(z((b, r), dtype=torch.int32),
+                                           z((r, 32), dtype=torch.int32),
+                                           z((b, 50), dtype=torch.uint8))
+        assert found.shape == parent.shape == (b, 0)
+        assert (found.dtype, parent.dtype) == (torch.uint8, torch.int32)
+        fresh = ops.topdown_batch(z((b, r), dtype=torch.int32),
+                                  z((r, 32), dtype=torch.int32),
+                                  z((b, 50), dtype=torch.uint8))
+        assert fresh.shape == (b, r, 32) and fresh.dtype == torch.uint8
+        jf = jops.topdown_batch(jnp.zeros((b, r), jnp.int32),
+                                jnp.zeros((r, 32), jnp.int32),
+                                jnp.zeros((b, 50), jnp.uint8), interpret=True)
+        assert tuple(jf.shape) == tuple(fresh.shape)
+    packed, nf, mf = ops.frontier_fused_batch(z((0, 40), dtype=torch.uint8),
+                                              z(40, dtype=torch.int32))
+    assert packed.shape == (0, 0) and nf.shape == mf.shape == (0,)
+    packed, nf, mf = ops.frontier_fused_batch(z((2, 0), dtype=torch.uint8),
+                                              z(0, dtype=torch.int32))
+    assert packed.shape == (2, 0) and nf.tolist() == mf.tolist() == [0, 0]
+
+
+def test_cpu_tensors_never_touch_the_build(monkeypatch):
+    """A CPU tensor runs the plain version: no nvcc, no library, no launch
+    counted."""
+    def refuse(*a, **k):
+        raise AssertionError("the CPU path reached kernels._build")
+    monkeypatch.setattr(_build, "build_all", refuse)
+    monkeypatch.setattr(_build, "function", refuse)
+    monkeypatch.setattr(_build, "launch", refuse)
+    before = dict(ops.LAUNCHES)
+    deg, nbrs, fr = _inputs(0, 2, 20, 32, 64)
+    ops.bottomup_batch(torch.from_numpy(deg), torch.from_numpy(nbrs),
+                       torch.from_numpy(fr))
+    ops.topdown_batch(torch.from_numpy(deg), torch.from_numpy(nbrs),
+                      torch.from_numpy(fr))
+    ops.frontier_fused_batch(torch.from_numpy(fr),
+                             torch.arange(64, dtype=torch.int32))
+    assert ops.LAUNCHES == before
+
+
+def test_launchers_refuse_cpu_tensors():
+    """The CUDA launchers take CUDA tensors only: no silent plain path."""
+    deg, nbrs, fr = (torch.from_numpy(x) for x in _inputs(1, 2, 8, 32, 40))
+    with pytest.raises(ValueError, match="CUDA"):
+        tbu.bottomup_batch_cuda(deg, nbrs, fr)
+    with pytest.raises(ValueError, match="CUDA"):
+        ttd.topdown_batch_cuda(deg, nbrs, fr)
+    with pytest.raises(ValueError, match="CUDA"):
+        tff.frontier_fused_batch_cuda(fr, torch.zeros(40, dtype=torch.int32))
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
+    # library names follow the source hash, so an edited source rebuilds
+    paths = {_build.library_path(n) for n in _build.SOURCES}
+    assert len(paths) == len(_build.SOURCES)
+    assert all(p.parent == tmp_path / "build" for p in paths)
+
+
+def test_concurrent_builds_run_one_compiler_per_source(monkeypatch, tmp_path):
+    """Two threads building at once: each source compiles once, and every
+    library lands whole (no two compilers share a temporary file)."""
+    calls = tmp_path / "calls.log"
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        f"echo \"$@\" >> {calls}\n"
+        "sleep 0.2\n"
+        "while [ \"$1\" != -o ]; do shift; done\n"
+        "echo built > \"$2\"\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: str(fake))
+    threads = [threading.Thread(target=_build.build_all) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(calls.read_text().splitlines()) == len(_build.SOURCES)
+    for n in _build.SOURCES:
+        assert _build.library_path(n).read_text() == "built\n"
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_cuda():
+    """On a card: every kernel against its plain version, bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the GPU host)")
+    dev = torch.device("cuda")
+    for b, r, w, v, masked, _ in SHAPES + [(8, 7, 4096, 5000, 2, 32)]:
+        deg, nbrs, table = (torch.from_numpy(x).to(dev)
+                            for x in _inputs(r + w, b, r, w, v, masked))
+        n = dict(ops.LAUNCHES)
+        f1, p1 = ops.bottomup_batch(deg, nbrs, table)
+        f2, p2 = tbu.bottomup_batch_plain(deg, nbrs, table)
+        assert torch.equal(f1, f2) and torch.equal(p1, p2)
+        assert torch.equal(ops.topdown_batch(deg, nbrs, table),
+                           ttd.topdown_batch_plain(deg, nbrs, table))
+        vdeg = torch.arange(v, dtype=torch.int32, device=dev)
+        a = ops.frontier_fused_batch(table, vdeg)
+        p = tff.frontier_fused_batch_plain(table, vdeg)
+        assert torch.equal(a[0].view(torch.int32), p[0].view(torch.int32))
+        assert torch.equal(a[1], p[1]) and torch.equal(a[2], p[2])
+        assert all(ops.LAUNCHES[k] == n[k] + 1 for k in n)
