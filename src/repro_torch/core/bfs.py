@@ -1,21 +1,31 @@
-"""Batched cohort direction-optimized BFS on PyTorch tensors.
+"""Direction-optimized BFS on PyTorch tensors: batched cohorts and one root.
 
-The port of the JAX package's batched cohort path (`core/bfs.py`,
-`init_batch` .. `batch_scalars`) in its kernel formulation, unsplit. A
-batch of B searches is a structure of arrays (`[B, V]` flags, parents and
-levels plus per-lane statistics). Each level partitions the batch into a
-top-down cohort, a bottom-up cohort and the finished lanes, and each
-direction runs once over its masked cohort through the kernels of
-`repro_torch.kernels.ops` over degree-bucketed ELL tiles
-(`repro_torch.core.ell`). A lane outside a cohort carries zero degrees and
-costs no traversal work. The host loop lives in
-`repro_torch.engine.level_loop.CohortBatchBackend`. The two kernel steps
-are named after their kernels (`_topdown_step_kernels_batch`,
-`_bottomup_step_kernels_batch`); their reference counterparts are the
-kernel steps at `repro/core/bfs.py:700-745`.
+The port of the JAX package's `core/bfs.py` in its kernel formulation.
+
+* **Batched cohort path** (`init_batch` .. `batch_scalars`). A batch of B
+  searches is a structure of arrays (`[B, V]` flags, parents and levels
+  plus per-lane statistics). Each level partitions the batch into a
+  top-down cohort, a bottom-up cohort and the finished lanes, and each
+  direction runs once over its masked cohort through the kernels of
+  `repro_torch.kernels.ops` over degree-bucketed ELL tiles
+  (`repro_torch.core.ell`). A lane outside a cohort carries zero degrees
+  and costs no traversal work. With `BFSConfig.hub_split` every level runs
+  as two sides, the hub rows (degree above the snapped `hub_deg` floor) and
+  the tail, each with its own direction per lane; the hub side pulls
+  through the hub kernel. The host loop lives in
+  `repro_torch.engine.level_loop.CohortBatchBackend`. The two kernel steps
+  are named after their kernels (`_topdown_step_kernels_batch`,
+  `_bottomup_step_kernels_batch`); their reference counterparts are the
+  kernel steps at `repro/core/bfs.py:700-745`.
+* **Single-root path** (`init_state` .. `bfs_instrumented`), through the
+  single-lane kernels. The reference branches on the device with
+  `lax.cond`; here the branch is taken on the host, from the one sync per
+  level: its payload (`state_scalars`) carries the next step's direction,
+  decided on the device by the same `_decide_direction` that sets the
+  state's `bu_mode`, and the step takes it as an argument.
 
 Steps are plain functions of tensors; a state is never updated in place, so
-a `BatchState` can be kept and compared after later steps ran.
+a state can be kept and compared after later steps ran.
 
 Results equal the JAX package's bit for bit: integer state keeps its
 dtypes (torch's integer sums widen to int64 and are cast back to int32),
@@ -26,17 +36,16 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import ell as ELL
 from repro_torch.core.graph import Graph
 from repro_torch.kernels import ops as K
 
 INT_MAX = int(np.iinfo(np.int32).max)
-
-HUB_SPLIT_TODO = ("hub_split=True is not ported yet: ROADMAP.md queue 1 "
-                  "item 5 (core/bfs.py, hub/tail split)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +56,15 @@ class BFSConfig:
     switch is gone: here the tensors' device decides between a kernel and
     its plain version (`kernels.ops`), so no config knob is needed.
     `td_chunk`/`bu_chunk` size the JAX package's XLA formulation, which is
-    not ported yet; they are kept so configs carry over unchanged.
+    not ported yet, and `hub_slab` its XLA hub pull; they are kept so
+    configs carry over unchanged.
+
+    `hub_split` runs every cohort level as a hub side and a tail side, each
+    with its own direction decision per lane (the pull-cost input `mu` is
+    side-local). The paper heuristic's threshold is a fraction of all
+    edges, so its sides always agree and the split equals the unsplit
+    search bit for bit; beamer's hub side can flip bottom-up earlier. The
+    single-root path ignores `hub_split`, as the reference's does.
     """
     heuristic: str = "paper"      # "paper" | "beamer" | "topdown" | "bottomup"
     alpha: float = 14.0           # beamer: switch down when mf > mu/alpha
@@ -62,19 +79,22 @@ class BFSConfig:
     hub_deg: int = 256            # hub threshold (snapped to bucket ladder)
     hub_slab: int = 256           # neighbour slots per hub-side pull slab
 
-    def __post_init__(self):
-        if self.hub_split:
-            raise NotImplementedError(HUB_SPLIT_TODO)
-
 
 @dataclasses.dataclass
 class DeviceGraph:
-    """CSR graph as device tensors (+ one degree slot for the fill id V)."""
+    """CSR graph as device tensors (+ one degree slot for the fill id V).
+
+    `memo` holds what is derived from the graph once and reused by every
+    step: the hub masks and split tiles per `hub_deg`, and the ELL tiles a
+    one-shot search builds.
+    """
     indptr: torch.Tensor     # int32[V+1]
     indices: torch.Tensor    # int32[E]
     deg_ext: torch.Tensor    # int32[V+1]; deg_ext[V] == 0
     num_vertices: int
     num_directed_edges: int
+    memo: dict = dataclasses.field(default_factory=dict, repr=False,
+                                   compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -96,46 +116,13 @@ class DeviceGraph:
         )
 
 
-BATCH_VARIANTS = ("td", "bu", "mixed")
-
-# The 20 fields in the JAX package's `BatchState.tree_flatten` order.
-BATCH_STATE_FIELDS = (
-    "visited", "frontier", "parent", "level", "cur_level", "active",
-    "bu_mode", "bu_steps", "mu", "nf", "mf", "used_td", "used_bu",
-    "bu_hub", "bu_steps_hub", "mu_hub", "nf_hub", "mf_hub",
-    "used_td_hub", "used_bu_hub")
-
-
-@dataclasses.dataclass
-class BatchState:
-    """SoA state for a batch of B concurrent single-partition searches.
-
-    `bu_mode` holds each lane's direction for the NEXT step. `active` gates
-    every cohort mask: a finished or pad lane is in no cohort. `used_td`/
-    `used_bu` are the cohort sizes of the step that produced this state.
-    The hub track (`bu_hub` .. `used_bu_hub`) mirrors the tail track with
-    the split off, as in the reference, and its side statistics stay zero.
-    """
-    visited: torch.Tensor       # uint8[B, V]
-    frontier: torch.Tensor      # uint8[B, V]
-    parent: torch.Tensor        # int32[B, V], INT_MAX = undiscovered
-    level: torch.Tensor         # int32[B, V], INT_MAX = undiscovered
-    cur_level: torch.Tensor     # int32 scalar
-    active: torch.Tensor        # bool[B]
-    bu_mode: torch.Tensor       # bool[B]
-    bu_steps: torch.Tensor      # int32[B]
-    mu: torch.Tensor            # int32[B]: unvisited edge mass per lane
-    nf: torch.Tensor            # int32[B]: frontier vertex count per lane
-    mf: torch.Tensor            # int32[B]: frontier edge mass per lane
-    used_td: torch.Tensor       # int32 scalar
-    used_bu: torch.Tensor       # int32 scalar
-    bu_hub: torch.Tensor        # bool[B]
-    bu_steps_hub: torch.Tensor  # int32[B]
-    mu_hub: torch.Tensor        # int32[B]
-    nf_hub: torch.Tensor        # int32[B]
-    mf_hub: torch.Tensor        # int32[B]
-    used_td_hub: torch.Tensor   # int32 scalar
-    used_bu_hub: torch.Tensor   # int32 scalar
+def _memo(dg: DeviceGraph, key, build):
+    """`dg.memo[key]`, built on first use. Two threads racing on a missing
+    key both build it; the builds are equal, so either result serves."""
+    got = dg.memo.get(key)
+    if got is None:
+        got = dg.memo[key] = build()
+    return got
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
@@ -159,7 +146,9 @@ def _decide_direction_batch(dg: DeviceGraph, cfg: BFSConfig, bu_mode,
 
     The comparisons are float32 on the device, as in the reference: above
     2^24 float32 rounds, and float64 or host comparisons would flip
-    directions near the thresholds.
+    directions near the thresholds. Under `hub_split` this runs once per
+    side, with that side's unvisited edge mass as `mu`. Works on 0-dim
+    tensors too (the single-root `_decide_direction`).
     """
     v = dg.num_vertices
     e = dg.num_directed_edges
@@ -181,6 +170,266 @@ def _decide_direction_batch(dg: DeviceGraph, cfg: BFSConfig, bu_mode,
     return bu, torch.where(bu, bu_steps + 1, zero)
 
 
+# ------------------------------------------------------------- single root --
+
+
+# The 10 fields in the JAX package's `BFSState.tree_flatten` order.
+BFS_STATE_FIELDS = ("visited", "frontier", "parent", "level", "cur_level",
+                    "bu_mode", "bu_steps", "mu", "nf", "mf")
+
+
+@dataclasses.dataclass
+class BFSState:
+    """One search's state. `bu_mode` is the direction of the step that
+    produced it (the reference's meaning)."""
+    visited: torch.Tensor    # uint8[V]
+    frontier: torch.Tensor   # uint8[V]
+    parent: torch.Tensor     # int32[V], INT_MAX = undiscovered
+    level: torch.Tensor      # int32[V], INT_MAX = undiscovered
+    cur_level: torch.Tensor  # int32 scalar
+    bu_mode: torch.Tensor    # bool scalar
+    bu_steps: torch.Tensor   # int32 scalar: bottom-up rounds taken
+    mu: torch.Tensor         # int32 scalar: edge mass of unvisited vertices
+    nf: torch.Tensor         # int32 scalar: frontier vertex count
+    mf: torch.Tensor         # int32 scalar: frontier edge mass
+
+
+def init_state(dg: DeviceGraph, root: int) -> BFSState:
+    """The search from `root` (a host int) before its first level."""
+    v = dg.num_vertices
+    dev = dg.device
+    root = int(root)
+    visited = torch.zeros(v, dtype=torch.uint8, device=dev)
+    visited[root] = 1
+    parent = torch.full((v,), INT_MAX, dtype=torch.int32, device=dev)
+    parent[root] = root
+    level = torch.full((v,), INT_MAX, dtype=torch.int32, device=dev)
+    level[root] = 0
+    rdeg = dg.deg_ext[root].clone()
+    z = torch.zeros((), dtype=torch.int32, device=dev)
+    return BFSState(visited, visited.clone(), parent, level, z,
+                    torch.zeros((), dtype=torch.bool, device=dev), z,
+                    _i32(dg.deg_ext.sum()) - rdeg,
+                    torch.ones((), dtype=torch.int32, device=dev), rdeg)
+
+
+def _decide_direction(dg: DeviceGraph, cfg: BFSConfig, st: BFSState):
+    """Next-level direction (True = bottom-up) + updated bu_steps counter,
+    from the statistics carried in `st`."""
+    return _decide_direction_batch(dg, cfg, st.bu_mode, st.bu_steps, st.mu,
+                                   st.nf, st.mf)
+
+
+def _topdown_step_kernels(dg: DeviceGraph, cfg: BFSConfig, ell,
+                          st: BFSState):
+    """Push level through `kernels.ops.topdown`, one launch per ELL bucket.
+
+    The kernel returns the destinations with the fresh flags; the parent
+    candidates go through an int32 scatter-min, and the flags follow from
+    it (a vertex got a fresh slot iff its candidate is below INT_MAX), as
+    in `_topdown_step_kernels_batch`.
+    """
+    pcand = torch.full((dg.num_vertices,), INT_MAX, dtype=torch.int32,
+                       device=st.frontier.device)
+    for rows, deg, nbrs in ell:
+        act_deg = torch.where(st.frontier[rows] != 0, deg, 0)
+        fresh, dst = K.topdown(act_deg, nbrs, st.visited)
+        src = torch.where(fresh != 0, rows[:, None], INT_MAX)
+        pcand.scatter_reduce_(0, dst.reshape(-1).to(torch.int64),
+                              src.reshape(-1), "amin", include_self=True)
+    next_flags = (pcand != INT_MAX).to(torch.uint8)
+    return next_flags, torch.minimum(st.parent, pcand)
+
+
+def _bottomup_step_kernels(dg: DeviceGraph, cfg: BFSConfig, ell,
+                           st: BFSState):
+    """Pull level through `kernels.ops.bottomup`, one launch per ELL bucket;
+    visited rows carry degree 0 and cost no slabs."""
+    next_flags = torch.zeros(dg.num_vertices, dtype=torch.uint8,
+                             device=st.frontier.device)
+    parent = st.parent.clone()
+    for rows, deg, nbrs in ell:
+        act_deg = torch.where(st.visited[rows] == 0, deg, 0)
+        found, par = K.bottomup(act_deg, nbrs, st.frontier,
+                                slab=min(cfg.bu_slab, nbrs.shape[1]))
+        next_flags[rows] = torch.maximum(next_flags[rows], found)
+        parent[rows] = torch.minimum(
+            parent[rows], torch.where(found != 0, par, INT_MAX))
+    return next_flags, parent
+
+
+def _advance(dg: DeviceGraph, cfg: BFSConfig, ell, st: BFSState,
+             bu: bool) -> BFSState:
+    """One level. `bu` is the host's copy of this step's direction, which
+    `state_scalars(dg, cfg, st)["bu_next"]` brought over in the level's
+    sync; the state records the same decision, made here on the device."""
+    bu_t, bu_steps = _decide_direction(dg, cfg, st)
+    step = _bottomup_step_kernels if bu else _topdown_step_kernels
+    next_flags, parent = step(dg, cfg, ell, st)
+    _, nf, mf = K.frontier_fused(next_flags, dg.deg_ext[:-1])
+    cur = st.cur_level + 1
+    return BFSState(torch.maximum(st.visited, next_flags), next_flags, parent,
+                    torch.where(next_flags != 0, cur, st.level), cur,
+                    bu_t, bu_steps, st.mu - mf, nf, mf)
+
+
+def state_scalars(dg: DeviceGraph, cfg: BFSConfig, st: BFSState) -> dict:
+    """Per-level host-sync payload of the single-root path, as device
+    tensors: the loop condition, the direction of the step that produced
+    `st` (`bu`, the stats row's) and of the next step (`bu_next`)."""
+    return dict(nf=st.nf, mf=st.mf, cur=st.cur_level, bu=st.bu_mode,
+                bu_next=_decide_direction(dg, cfg, st)[0])
+
+
+def _resolve_ell(dg: DeviceGraph, ell):
+    """`ell`, or the graph's own tiles built once and kept on `dg`."""
+    if ell is not None:
+        return ell
+    return _memo(dg, ("ell",), lambda: ELL.build_device_graph_ell(dg))
+
+
+def make_level_step(dg: DeviceGraph, cfg: BFSConfig, ell=None):
+    """`(state, bu) -> state` advancing one level, `bu` the host bool
+    `state_scalars(...)["bu_next"]` of the same state."""
+    return functools.partial(_advance, dg, cfg, _resolve_ell(dg, ell))
+
+
+def search_state(dg: DeviceGraph, root: int, cfg: BFSConfig,
+                 ell=None) -> BFSState:
+    """Whole search from one root: init, then levels while the frontier is
+    non-empty and below `cfg.max_levels` (0 = V). One host sync per level
+    (`engine.level_loop.host_sync` of `state_scalars`) reads the loop
+    condition and the next direction together."""
+    from repro_torch.engine.level_loop import host_sync
+    ell = _resolve_ell(dg, ell)
+    max_levels = cfg.max_levels or dg.num_vertices
+    st = init_state(dg, root)
+    while True:
+        s = host_sync(state_scalars(dg, cfg, st))
+        if not (s["nf"] > 0 and s["cur"] < max_levels):
+            return st
+        st = _advance(dg, cfg, ell, st, s["bu_next"])
+
+
+def _device_graph(g, device) -> DeviceGraph:
+    if isinstance(g, DeviceGraph):
+        return g
+    from repro_torch.engine.session import resolve_device
+    return DeviceGraph.from_graph(g, resolve_device(device))
+
+
+def bfs(g: Graph | DeviceGraph, root: int, cfg: BFSConfig = BFSConfig(), *,
+        device=None) -> tuple[np.ndarray, np.ndarray]:
+    """Full direction-optimized search; returns (parent, level) on the host.
+
+    One-shot convenience: a `DeviceGraph` keeps its ELL tiles between calls
+    (use `repro_torch.engine` for repeated queries). A `Graph` goes to
+    `device`, the GPU when None (`device="cpu"` asks for the CPU).
+    """
+    dg = _device_graph(g, device)
+    return finalize(search_state(dg, root, cfg))
+
+
+def bfs_instrumented(g: Graph | DeviceGraph, root: int,
+                     cfg: BFSConfig = BFSConfig(), *, device=None):
+    """Level-by-level search over the shared `LevelDriver`.
+
+    Returns (parent, level, per_level_stats), rows in the driver's schema
+    (level, direction, frontier_size, frontier_edges, seconds, compute_s,
+    exchange_s).
+    """
+    from repro_torch.engine.level_loop import LevelDriver, SingleStepBackend
+    dg = _device_graph(g, device)
+    backend = SingleStepBackend(
+        functools.partial(init_state, dg), make_level_step(dg, cfg),
+        functools.partial(state_scalars, dg, cfg), dg.num_vertices, dg.device)
+    parent, level, stats, _timings = LevelDriver(backend).run(int(root))
+    return parent, level, stats
+
+
+# ---------------------------------------------------------- batched cohort --
+
+BATCH_VARIANTS = ("td", "bu", "mixed")
+
+# The 20 fields in the JAX package's `BatchState.tree_flatten` order.
+BATCH_STATE_FIELDS = (
+    "visited", "frontier", "parent", "level", "cur_level", "active",
+    "bu_mode", "bu_steps", "mu", "nf", "mf", "used_td", "used_bu",
+    "bu_hub", "bu_steps_hub", "mu_hub", "nf_hub", "mf_hub",
+    "used_td_hub", "used_bu_hub")
+
+
+@dataclasses.dataclass
+class BatchState:
+    """SoA state for a batch of B concurrent single-partition searches.
+
+    `bu_mode` holds each lane's direction for the NEXT step. `active` gates
+    every cohort mask: a finished or pad lane is in no cohort. `used_td`/
+    `used_bu` are the cohort sizes of the step that produced this state.
+    Under `hub_split` the tail side's track is `bu_mode`/`bu_steps` and the
+    hub side's `bu_hub`/`bu_steps_hub`/`mu_hub` (hub frontier statistics in
+    `nf_hub`/`mf_hub`, hub cohort sizes in `used_*_hub`); with the split
+    off the hub track mirrors the tail's and its side statistics stay zero.
+    """
+    visited: torch.Tensor       # uint8[B, V]
+    frontier: torch.Tensor      # uint8[B, V]
+    parent: torch.Tensor        # int32[B, V], INT_MAX = undiscovered
+    level: torch.Tensor         # int32[B, V], INT_MAX = undiscovered
+    cur_level: torch.Tensor     # int32 scalar
+    active: torch.Tensor        # bool[B]
+    bu_mode: torch.Tensor       # bool[B]
+    bu_steps: torch.Tensor      # int32[B]
+    mu: torch.Tensor            # int32[B]: unvisited edge mass per lane
+    nf: torch.Tensor            # int32[B]: frontier vertex count per lane
+    mf: torch.Tensor            # int32[B]: frontier edge mass per lane
+    used_td: torch.Tensor       # int32 scalar
+    used_bu: torch.Tensor       # int32 scalar
+    bu_hub: torch.Tensor        # bool[B]
+    bu_steps_hub: torch.Tensor  # int32[B]
+    mu_hub: torch.Tensor        # int32[B]: unvisited hub edge mass
+    nf_hub: torch.Tensor        # int32[B]
+    mf_hub: torch.Tensor        # int32[B]
+    used_td_hub: torch.Tensor   # int32 scalar
+    used_bu_hub: torch.Tensor   # int32 scalar
+
+
+def _hub_row_mask(dg: DeviceGraph, cfg: BFSConfig) -> torch.Tensor:
+    """bool[V]: the row is on the hub side (degree above the snapped floor
+    `ell.hub_degree_floor`, so exactly the rows of the hub ELL buckets).
+    Built once per (graph, `hub_deg`)."""
+    floor = ELL.hub_degree_floor(cfg.hub_deg)
+    return _memo(dg, ("hub_v", floor), lambda: dg.deg_ext[:-1] > floor)
+
+
+class HubSplit(NamedTuple):
+    """One graph's ELL tiles split at one `hub_deg`, built once.
+
+    `tail_dst`/`hub_dst` hold, per bucket of the whole ELL, the
+    lane-invariant side test of each slot's destination as uint8[R, W]
+    (`~hub_v[clip(nbrs)]` and `hub_v[clip(nbrs)]`): the `dst_mask` of a
+    side's push. Built by `_hub_split`.
+    """
+    hub_v: torch.Tensor    # bool[V]
+    ell_tail: tuple
+    ell_hub: tuple
+    tail_dst: tuple
+    hub_dst: tuple
+
+
+def _hub_split(dg: DeviceGraph, cfg: BFSConfig, ell) -> HubSplit:
+    """The `HubSplit` of `ell` at `cfg.hub_deg`, memoized on `dg` (the entry
+    keeps `ell` alive, so its id stays its own)."""
+    def build():
+        hub_v = _hub_row_mask(dg, cfg)
+        ell_tail, ell_hub = ELL.split_tiles(ell, cfg.hub_deg)
+        on_hub = [hub_v[t.nbrs.clamp(0, dg.num_vertices - 1).to(torch.int64)]
+                  for t in ell]
+        return ell, HubSplit(hub_v, ell_tail, ell_hub,
+                             tuple((~h).to(torch.uint8) for h in on_hub),
+                             tuple(h.to(torch.uint8) for h in on_hub))
+    return _memo(dg, ("split", cfg.hub_deg, id(ell)), build)[1]
+
+
 def init_batch(dg: DeviceGraph, cfg: BFSConfig, roots: torch.Tensor,
                active: torch.Tensor) -> BatchState:
     """Batched search start with an activity mask.
@@ -188,7 +437,7 @@ def init_batch(dg: DeviceGraph, cfg: BFSConfig, roots: torch.Tensor,
     `roots` is int32[B] (pad lanes may repeat any valid id); `active` is
     bool[B]. Inactive lanes get an empty frontier, nothing visited, and
     INT_MAX parent/level everywhere. The first step's per-lane direction is
-    decided here.
+    decided here, per side under `hub_split`.
     """
     v = dg.num_vertices
     dev = dg.device
@@ -209,15 +458,30 @@ def init_batch(dg: DeviceGraph, cfg: BFSConfig, roots: torch.Tensor,
     nf = _i32(active)
     mf = torch.where(active, rdeg, zi)
     off = torch.zeros(b, dtype=torch.bool, device=dev)
-    bu, bu_steps = _decide_direction_batch(dg, cfg, off, zi, mu, nf, mf)
+    if cfg.hub_split:
+        hub_v = _hub_row_mask(dg, cfg)
+        e_hub = _i32(torch.where(hub_v, dg.deg_ext[:-1], 0).sum())
+        root_hub = active & hub_v[roots]
+        nf_hub = _i32(root_hub)
+        mf_hub = torch.where(root_hub, rdeg, zi)
+        mu_hub = torch.where(active, e_hub - mf_hub, zi)
+        bu, bu_steps = _decide_direction_batch(dg, cfg, off, zi,
+                                               mu - mu_hub, nf, mf)
+        bu_h, steps_h = _decide_direction_batch(dg, cfg, off, zi,
+                                                mu_hub, nf, mf)
+    else:
+        bu, bu_steps = _decide_direction_batch(dg, cfg, off, zi, mu, nf, mf)
+        bu_h, steps_h = bu, bu_steps
+        nf_hub = mf_hub = mu_hub = zi
     z = torch.zeros((), dtype=torch.int32, device=dev)
     return BatchState(visited, visited.clone(), parent, level, z, active,
                       bu, bu_steps, mu, nf, mf, z, z,
-                      bu, bu_steps, zi, zi, zi, z, z)
+                      bu_h, steps_h, mu_hub, nf_hub, mf_hub, z, z)
 
 
 def _topdown_step_kernels_batch(dg: DeviceGraph, cfg: BFSConfig, ell,
-                                 frontier, visited, parent, mask):
+                                 frontier, visited, parent, mask,
+                                 dst_mask=None):
     """Kernel push over the top-down cohort: one `topdown_batch` launch per
     ELL bucket serves every lane; masked lanes carry zero degrees.
 
@@ -227,14 +491,21 @@ def _topdown_step_kernels_batch(dg: DeviceGraph, cfg: BFSConfig, ell,
     vertex got a fresh slot iff its `pcand` is below INT_MAX (sources are
     real ids). So no uint8 scatter-max is needed, and
     `where(flags, min(parent, pcand), parent)` is `min(parent, pcand)`.
+
+    `dst_mask` (per bucket, uint8[R, W]: the split side's test of each
+    slot's destination, `HubSplit.tail_dst`/`hub_dst`) restricts which
+    vertices this pass may discover. It masks `fresh` before the sources
+    are taken, so the flags derived from `pcand` stay exact.
     """
     b, v = frontier.shape
     pcand = torch.full((b, v), INT_MAX, dtype=torch.int32,
                        device=frontier.device)
-    for rows, deg, nbrs in ell:
+    for i, (rows, deg, nbrs) in enumerate(ell):
         act = mask[:, None] & (frontier[:, rows] != 0)
         act_deg = torch.where(act, deg[None, :], 0)
         fresh = K.topdown_batch(act_deg, nbrs, visited)       # uint8[B, R, W]
+        if dst_mask is not None:
+            fresh = fresh & dst_mask[i][None]
         dst = nbrs.clamp(0, v - 1).reshape(-1).to(torch.int64)  # lane-invariant
         src = torch.where(fresh != 0, rows[None, :, None], INT_MAX)
         pcand.scatter_reduce_(1, dst[None, :].expand(b, -1),
@@ -244,44 +515,73 @@ def _topdown_step_kernels_batch(dg: DeviceGraph, cfg: BFSConfig, ell,
 
 
 def _bottomup_step_kernels_batch(dg: DeviceGraph, cfg: BFSConfig, ell,
-                                  frontier, visited, parent, mask):
+                                  frontier, visited, parent, mask,
+                                  hub_kernel=False):
     """Kernel pull over the bottom-up cohort: one `bottomup_batch` launch
-    per ELL bucket; masked lanes and settled rows carry degree 0. A
-    bucket's rows are distinct, so its max/min merges are gather, combine,
-    write back."""
+    per ELL bucket (`hub_bottomup_batch` with `hub_kernel`, the split's hub
+    buckets); masked lanes and settled rows carry degree 0. A bucket's rows
+    are distinct, so its max/min merges are gather, combine, write back."""
     b, v = frontier.shape
     next_flags = torch.zeros((b, v), dtype=torch.uint8, device=frontier.device)
     parent = parent.clone()
     for rows, deg, nbrs in ell:
         act = mask[:, None] & (visited[:, rows] == 0)
         act_deg = torch.where(act, deg[None, :], 0)
-        found, par = K.bottomup_batch(act_deg, nbrs, frontier,
-                                      slab=min(cfg.bu_slab, nbrs.shape[1]))
+        if hub_kernel:
+            found, par = K.hub_bottomup_batch(act_deg, nbrs, frontier)
+        else:
+            found, par = K.bottomup_batch(act_deg, nbrs, frontier,
+                                          slab=min(cfg.bu_slab,
+                                                   nbrs.shape[1]))
         next_flags[:, rows] = torch.maximum(next_flags[:, rows], found)
         parent[:, rows] = torch.minimum(
             parent[:, rows], torch.where(found != 0, par, INT_MAX))
     return next_flags, parent
 
 
-def _advance_batch(dg: DeviceGraph, cfg: BFSConfig, ell, variant: str,
+def _advance_batch(dg: DeviceGraph, cfg: BFSConfig, ell, split, variant: str,
                    st: BatchState) -> BatchState:
     """One cohort level: at most one top-down plus one bottom-up pass, each
     over its masked cohort, never both per lane. `variant` ("td" | "bu" |
-    "mixed") names the passes this step contains."""
+    "mixed") names the passes this step contains.
+
+    Under `hub_split` (`split` is the graph's `HubSplit`), "td" stays one
+    unmasked push (every side of every lane pushes); "bu" is a tail pull
+    over the tail buckets plus a hub pull over the hub buckets, which
+    together give the unsplit pull's flags and parents (a row's first hit
+    does not depend on which pass scans it); "mixed" adds a push per side,
+    each discovering only its side's vertices.
+    """
     b, v = st.frontier.shape
     dev = st.frontier.device
-    next_flags = torch.zeros((b, v), dtype=torch.uint8, device=dev)
-    parent = st.parent
-    bu_t = st.bu_mode
+    bu_t, bu_h = st.bu_mode, st.bu_hub
     td_t_mask = st.active & ~bu_t
     bu_t_mask = st.active & bu_t
-    if variant in ("td", "mixed"):
+    td_h_mask = st.active & ~bu_h
+    bu_h_mask = st.active & bu_h
+    pushes, pulls = [], []      # (lanes, dst_mask) and (lanes, tiles, hub)
+    if split is None:
+        if variant in ("td", "mixed"):
+            pushes.append((td_t_mask, None))
+        if variant in ("bu", "mixed"):
+            pulls.append((bu_t_mask, ell, False))
+    elif variant == "td":
+        pushes.append((td_t_mask, None))
+    else:
+        if variant == "mixed":
+            pushes += [(td_t_mask, split.tail_dst), (td_h_mask, split.hub_dst)]
+        pulls += [(bu_t_mask, split.ell_tail, False),
+                  (bu_h_mask, split.ell_hub, True)]
+    next_flags = torch.zeros((b, v), dtype=torch.uint8, device=dev)
+    parent = st.parent
+    for lanes, dst_mask in pushes:
         flags, parent = _topdown_step_kernels_batch(
-            dg, cfg, ell, st.frontier, st.visited, parent, td_t_mask)
+            dg, cfg, ell, st.frontier, st.visited, parent, lanes, dst_mask)
         next_flags = torch.maximum(next_flags, flags)
-    if variant in ("bu", "mixed"):
+    for lanes, tiles, hub in pulls:
         flags, parent = _bottomup_step_kernels_batch(
-            dg, cfg, ell, st.frontier, st.visited, parent, bu_t_mask)
+            dg, cfg, tiles, st.frontier, st.visited, parent, lanes,
+            hub_kernel=hub)
         next_flags = torch.maximum(next_flags, flags)
     _, nf, mf = K.frontier_fused_batch(next_flags, dg.deg_ext[:-1])
     cur = st.cur_level + 1
@@ -290,14 +590,29 @@ def _advance_batch(dg: DeviceGraph, cfg: BFSConfig, ell, variant: str,
     mu = st.mu - mf
     max_levels = cfg.max_levels or dg.num_vertices
     active = st.active & (nf > 0) & (cur < max_levels)
-    bu2, steps2 = _decide_direction_batch(dg, cfg, bu_t, st.bu_steps,
-                                          mu, nf, mf)
-    zi = torch.zeros(b, dtype=torch.int32, device=dev)
     z = torch.zeros((), dtype=torch.int32, device=dev)
+    if split is not None:
+        on_hub = (next_flags != 0) & split.hub_v[None, :]
+        nf_hub = _i32(on_hub.sum(dim=1))
+        mf_hub = _i32(torch.where(on_hub, dg.deg_ext[:-1].to(torch.int64), 0)
+                      .sum(dim=1))
+        mu_hub = st.mu_hub - mf_hub
+        bu2, steps2 = _decide_direction_batch(dg, cfg, bu_t, st.bu_steps,
+                                              mu - mu_hub, nf, mf)
+        bu_h2, steps_h2 = _decide_direction_batch(
+            dg, cfg, bu_h, st.bu_steps_hub, mu_hub, nf, mf)
+        used_hub = (_i32(td_h_mask.sum()), _i32(bu_h_mask.sum()))
+    else:
+        bu2, steps2 = _decide_direction_batch(dg, cfg, bu_t, st.bu_steps,
+                                              mu, nf, mf)
+        bu_h2, steps_h2 = bu2, steps2
+        nf_hub = mf_hub = mu_hub = torch.zeros(b, dtype=torch.int32,
+                                               device=dev)
+        used_hub = (z, z)
     return BatchState(visited, next_flags, parent, level, cur, active,
                       bu2, steps2, mu, nf, mf,
                       _i32(td_t_mask.sum()), _i32(bu_t_mask.sum()),
-                      bu2, steps2, zi, zi, zi, z, z)
+                      bu_h2, steps_h2, mu_hub, nf_hub, mf_hub, *used_hub)
 
 
 def reachable_variants(cfg: BFSConfig) -> tuple[str, ...]:
@@ -315,7 +630,8 @@ def make_batch_step(dg: DeviceGraph, cfg: BFSConfig, variant: str, ell):
     if variant not in BATCH_VARIANTS:
         raise ValueError(f"variant must be one of {BATCH_VARIANTS}, "
                          f"got {variant!r}")
-    return functools.partial(_advance_batch, dg, cfg, ell, variant)
+    split = _hub_split(dg, cfg, ell) if cfg.hub_split else None
+    return functools.partial(_advance_batch, dg, cfg, ell, split, variant)
 
 
 def batch_scalars(st: BatchState) -> dict:
@@ -324,6 +640,7 @@ def batch_scalars(st: BatchState) -> dict:
     Everything the host needs each level, as device tensors; `LevelDriver`
     stacks them into one tensor and copies it to the host once. `nf`/`mf`
     count ACTIVE lanes only, so the loop ends when every lane finished.
+    `td_next`/`bu_next` count active lanes with ANY side in that direction.
     """
     act = st.active
     return dict(
@@ -349,8 +666,9 @@ def batch_scalars(st: BatchState) -> dict:
     )
 
 
-def finalize(st: BatchState) -> tuple[np.ndarray, np.ndarray]:
-    """Sentinels -> Graph500 conventions (-1 for unreached), host numpy."""
+def finalize(st) -> tuple[np.ndarray, np.ndarray]:
+    """Sentinels -> Graph500 conventions (-1 for unreached), host numpy.
+    Works on a `BFSState` ([V]) or a `BatchState` ([B, V])."""
     parent = st.parent.cpu().numpy()
     level = st.level.cpu().numpy()
     parent = np.where(parent == INT_MAX, -1, parent)

@@ -8,7 +8,8 @@ keeps its CSR slot order, which is what makes first-hit parents equal to a
 CSR slab scan bit for bit.
 
 Built on the host (numpy) once per graph, then moved to a device;
-`GraphSession.ell_tiles` owns the cache. The layout equals the JAX
+`GraphSession.ell_tiles` owns the cache (and `DeviceGraph` memoizes the
+tiles a one-shot `core.bfs.bfs()` builds). The layout equals the JAX
 package's `core/ell.py` array for array.
 """
 from __future__ import annotations
@@ -110,6 +111,16 @@ def build_graph_ell(graph, *, device, base: int = DEFAULT_BASE,
     """`repro_torch.core.graph.Graph` -> single-partition ELL tiles."""
     return build_ell(graph.indptr, graph.indices, graph.degrees,
                      device=device, base=base, growth=growth)
+
+
+def build_device_graph_ell(dg, *, base: int = DEFAULT_BASE,
+                           growth: int = DEFAULT_GROWTH) -> EllTiles:
+    """`repro_torch.core.bfs.DeviceGraph` -> ELL tiles on its device (the
+    CSR comes back to the host once for the bucketing)."""
+    indptr = dg.indptr.cpu().numpy()
+    return build_ell(indptr, dg.indices.cpu().numpy(),
+                     np.diff(indptr).astype(np.int32), device=dg.device,
+                     base=base, growth=growth)
 
 
 def _ell_numpy(indptr, indices, degrees, row_ids, widths):

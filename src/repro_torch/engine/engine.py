@@ -5,16 +5,22 @@
     result = engine.bfs([r0, r1, ...])          # batch or single root
     result.validate(graph)
 
-The port of the JAX package's `engine/engine.py`, `fused` backend. A batch
-of B roots runs the batched cohort model (`repro_torch.core.bfs`) on the
-shared `LevelDriver`: per level the batch splits into a top-down cohort, a
-bottom-up cohort and the finished lanes, and each direction runs once over
-its masked cohort. Batches pad to a power-of-two bucket (at least 8) with
-inactive lanes. Unbatched (Graph500) mode runs the same cohort step at
-bucket 1, one root at a time, timed per root.
+The port of the JAX package's `engine/engine.py` for one partition:
 
-The `sharded` and `stepper` backends are not ported yet and raise
-`NotImplementedError`; with one device, `auto` resolves to `fused`.
+* ``fused`` — a batch of B roots runs the batched cohort model
+  (`repro_torch.core.bfs`) on the shared `LevelDriver`: per level the batch
+  splits into a top-down cohort, a bottom-up cohort and the finished lanes,
+  and each direction runs once over its masked cohort (per side under
+  `BFSConfig.hub_split`). Batches pad to a power-of-two bucket (at least 8)
+  with inactive lanes. Unbatched (Graph500) mode runs the same cohort step
+  at bucket 1, one root at a time, timed per root.
+* ``stepper`` — one root at a time through the single-root level step on
+  the same driver, returning per-level direction/frontier/timing rows per
+  root (`per_level_stats`) and out-of-loop phase times (`timings`).
+
+The ``sharded`` backend, and ``stepper`` over more than one partition,
+raise `NotImplementedError` (ROADMAP.md queue 1 item 8); with one device,
+``auto`` resolves to ``fused``.
 """
 from __future__ import annotations
 
@@ -30,19 +36,17 @@ from repro_torch.core.bfs import BFSConfig
 from repro_torch.core.graph import Graph
 from repro_torch.engine.level_loop import (CohortBatchBackend, LevelDriver,
                                            QueryCancelled, QueryControl,
-                                           QueryDeadlineExceeded)
+                                           QueryDeadlineExceeded,
+                                           SingleStepBackend)
 from repro_torch.engine.result import (TraversalResult,
                                        edges_traversed_from_levels)
 from repro_torch.engine.session import GraphSession
 
 BACKENDS = ("fused", "sharded", "stepper")
 
-NOT_PORTED = {
-    "sharded": ("backend='sharded' is not ported yet: ROADMAP.md queue 1 "
-                "item 8 (multi-GPU BSP on torch.distributed)"),
-    "stepper": ("backend='stepper' is not ported yet: ROADMAP.md queue 1 "
-                "items 7-8 (single-root core/bfs.py and BSPStepBackend)"),
-}
+SHARDED_TODO = ("the sharded BSP search (backend='sharded', or 'stepper' "
+                "with n_parts > 1) is not ported yet: ROADMAP.md queue 1 "
+                "item 8 (multi-GPU BSP on torch.distributed)")
 
 RootsLike = Union[int, np.integer, Sequence[int], np.ndarray]
 
@@ -62,7 +66,7 @@ def _bucket_batch(batch: int) -> int:
 class QueryPlan:
     """Fully resolved query parameters (hashable): queries with equal plans
     run the same cached step functions."""
-    backend: str              # resolved: "fused"
+    backend: str              # resolved: "fused" | "stepper"
     n_parts: int
     cfg: BFSConfig
 
@@ -107,11 +111,11 @@ class Engine:
             n_parts = 1
         if backend == "auto":
             backend = "fused" if n_parts == 1 else "sharded"
-        if backend in NOT_PORTED:
-            raise NotImplementedError(NOT_PORTED[backend])
-        if n_parts != 1:
+        if backend == "fused" and n_parts != 1:
             raise ValueError("fused backend is single-partition; "
                              f"got n_parts={n_parts}")
+        if backend == "sharded" or n_parts != 1:
+            raise NotImplementedError(SHARDED_TODO)
         return backend, n_parts
 
     @staticmethod
@@ -152,14 +156,17 @@ class Engine:
         Args:
           roots: int or 1-D int array of vertex ids.
           cfg: `BFSConfig` (heuristic and tuning knobs).
-          backend: "auto" | "fused" ("sharded"/"stepper" are not ported).
+          backend: "auto" | "fused" | "stepper" ("sharded" is not ported).
           n_parts: partition count; only 1 is supported.
           batched: True runs the batch as one cohort search (per-root
             seconds are an even split); False runs and times roots one at a
             time (the Graph500 measurement mode).
           validate: check every parent tree against the numpy oracle.
-          on_level: batched mode only; `on_level(-1, row)` receives each
-            level's batch row the moment it lands on the host.
+          on_level: streaming callback, `on_level(batch_index, row)` the
+            moment each level's row lands on the host: one batch row per
+            level with `batch_index == -1` on the batched fused path, one
+            row per root per level (`batch_index` = root position) on the
+            stepper.
           control: `QueryControl` checked before dispatch, between roots,
             and once per level; aborts raise `QueryCancelled` /
             `QueryDeadlineExceeded` carrying the partial per-level stats.
@@ -173,11 +180,12 @@ class Engine:
                  on_level: Optional[Callable] = None,
                  control: Optional[QueryControl] = None) -> TraversalResult:
         """Run a query whose knobs were already resolved by `plan()`."""
-        if plan.backend in NOT_PORTED:
-            raise NotImplementedError(NOT_PORTED[plan.backend])
-        if on_level is not None and not batched:
-            raise ValueError("on_level streaming needs the batched fused "
-                             "path (batched=True)")
+        if plan.backend not in ("fused", "stepper") or plan.n_parts != 1:
+            raise NotImplementedError(SHARDED_TODO)
+        if on_level is not None and not (plan.backend == "stepper"
+                                         or batched):
+            raise ValueError("on_level streaming needs backend='stepper' or "
+                             "the batched fused path (batched=True)")
         if control is not None:
             control.check()
         roots_arr = self._normalize_roots(roots)
@@ -191,7 +199,11 @@ class Engine:
                 n_parts=plan.n_parts,
                 edges_undirected=self.graph.num_undirected_edges,
                 edges_traversed=np.empty((0,), np.int64))
-        res = self._bfs_fused(roots_arr, plan.cfg, batched, control, on_level)
+        if plan.backend == "stepper":
+            res = self._bfs_stepper(roots_arr, plan.cfg, on_level, control)
+        else:
+            res = self._bfs_fused(roots_arr, plan.cfg, batched, control,
+                                  on_level)
         res.edges_traversed = edges_traversed_from_levels(self.graph.degrees,
                                                           res.level)
         if validate:
@@ -240,8 +252,8 @@ class Engine:
             cb = (lambda row: on_level(-1, row)) if on_level else None
             t0 = time.perf_counter()
             try:
-                parent, level, rows = LevelDriver(backend).run(
-                    *lanes, cb, control)
+                parent, level, rows, _timings = LevelDriver(backend).run(
+                    lanes, cb, control)
             except (QueryCancelled, QueryDeadlineExceeded) as e:
                 e.per_level_stats = [e.per_level_stats]
                 raise
@@ -259,8 +271,8 @@ class Engine:
                 control.check()
             lanes = self._lanes(np.asarray([r]), 1)
             t0 = time.perf_counter()
-            parent, level, _rows = LevelDriver(backend).run(
-                *lanes, None, control)
+            parent, level, _rows, _timings = LevelDriver(backend).run(
+                lanes, None, control)
             per_root.append(time.perf_counter() - t0)
             parents.append(parent[0])
             levels.append(level[0])
@@ -269,3 +281,55 @@ class Engine:
         return TraversalResult(roots_arr, np.stack(parents), level,
                                _tree_depth(level), float(per_root.sum()),
                                per_root, "fused", 1, e_und)
+
+    # ------------------------------------------------------- stepper path --
+
+    def _stepper_backend_single(self, cfg: BFSConfig) -> SingleStepBackend:
+        """Single-root driver backend; its step is cached per config."""
+        sess = self.session
+        sess.ensure_kernels()
+        dg = sess.device_graph()
+        ell = sess.ell_tiles()
+        step = sess.cached(("stepper_step", cfg),
+                           lambda: B.make_level_step(dg, cfg, ell))
+        return SingleStepBackend(
+            lambda root: B.init_state(dg, root), step,
+            lambda st: B.state_scalars(dg, cfg, st), dg.num_vertices,
+            sess.device)
+
+    def _bfs_stepper(self, roots_arr, cfg, on_level=None,
+                     control=None) -> TraversalResult:
+        driver = LevelDriver(self._stepper_backend_single(cfg))
+        # The warm-up is a whole search too: it honours the control, and an
+        # aborted one is not recorded, so the next query warms again.
+        try:
+            self.session.warm(("stepper_warm", cfg),
+                              lambda: driver.run(int(roots_arr[0]), None,
+                                                 control))
+        except (QueryCancelled, QueryDeadlineExceeded) as e:
+            e.per_level_stats = [e.per_level_stats]
+            raise
+        if control is not None:
+            control.check()             # the warm-up may outlive a deadline
+        parents, levels, stats_all, timings, per_root = [], [], [], [], []
+        for i, r in enumerate(roots_arr):
+            cb = (lambda row, _i=i: on_level(_i, row)) if on_level else None
+            t0 = time.perf_counter()
+            try:
+                parent, level, stats, extra = driver.run(int(r), cb, control)
+            except (QueryCancelled, QueryDeadlineExceeded) as e:
+                # Per-root convention: completed roots + the aborted one.
+                e.per_level_stats = stats_all + [e.per_level_stats]
+                raise
+            per_root.append(time.perf_counter() - t0)
+            parents.append(parent)
+            levels.append(level)
+            stats_all.append(stats)
+            timings.append(extra)
+        per_root = np.asarray(per_root)
+        level = np.stack(levels)
+        return TraversalResult(roots_arr, np.stack(parents), level,
+                               _tree_depth(level), float(per_root.sum()),
+                               per_root, "stepper", 1,
+                               self.graph.num_undirected_edges,
+                               per_level_stats=stats_all, timings=timings)

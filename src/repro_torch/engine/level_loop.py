@@ -1,20 +1,32 @@
-"""The per-level BFS loop of the batched cohort path.
+"""The per-level BFS loop: one driver for every host-synced search.
 
-The port of the JAX package's `engine/level_loop.py` for its one backend
-here, `CohortBatchBackend`. The level driver owns the loop, the stats-row
-schema, the `on_level` streaming hook, the termination bound (checked
-before stepping: no level can exceed the vertex count minus one),
-cooperative cancellation, and the one host sync per level.
+The port of the JAX package's `engine/level_loop.py` for its two
+single-partition backends, `CohortBatchBackend` (the batched cohort path)
+and `SingleStepBackend` (one root, the stepper). The level driver owns the
+loop, the stats-row schema, the `on_level` streaming hook, the termination
+bound (checked before stepping: no level can exceed the vertex count minus
+one), cooperative cancellation, and the one host sync per level.
 
-That sync is one device-to-host copy: `bfs.batch_scalars(state)` is a dict
-of device tensors (loop condition, cohort occupancy, per-lane vectors);
-`host_sync` stacks them into one int64 tensor, calls `.cpu()` once, and
-unpacks on the host. Each level's step is timed up to one fence,
-`torch.cuda.synchronize(device)` on a GPU and nothing on the CPU.
+That sync is one device-to-host copy: a backend's `scalars(state)` is a
+dict of device tensors (loop condition, direction decisions, cohort
+occupancy, per-lane vectors); `host_sync` stacks them into one int64
+tensor, calls `.cpu()` once, and unpacks on the host. Each level's step is
+timed up to one fence, `torch.cuda.synchronize(device)` on a GPU and
+nothing on the CPU.
 
-The JAX package's driver also serves backends with an exchange phase (the
-single-root stepper and the sharded BSP path); that protocol comes back
-with the first of them to be ported.
+A backend, duck-typed:
+
+    depth_bound: int                 # vertex count - 1
+    device: torch.device
+    def init(root) -> state
+    def scalars(state) -> dict       # device tensors with nf, mf, cur
+    def step(state, sync) -> state   # sync: the host dict of the last sync
+    def row(pre, post, seconds) -> dict   # row fields beyond the driver's
+    def finalize(state) -> (parent, level)  # host numpy
+
+The JAX package's driver also serves the sharded BSP backend, whose
+exchange phase is timed apart from its compute; that part of the protocol
+comes back with the sharded path (ROADMAP.md queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -117,19 +129,31 @@ class CohortBatchBackend:
     whole batch agrees, "mixed" when both cohorts are non-empty.
     `dispatched` counts dispatches per variant.
 
-    `init(roots, active)` takes int32[B] roots (pad lanes repeat a valid id)
-    and the bool[B] mask that keeps pad lanes out of every cohort from
+    `init((roots, active))` takes int32[B] roots (pad lanes repeat a valid
+    id) and the bool[B] mask that keeps pad lanes out of every cohort from
     level 0.
     """
 
     def __init__(self, init_fn: Callable, step_fns: dict,
                  num_vertices: int, bucket: int, device: torch.device):
-        self.init = init_fn
+        self._init = init_fn
         self._steps = dict(step_fns)        # reachable variants only
         self.depth_bound = max(num_vertices - 1, 0)
         self.bucket = bucket
         self.device = torch.device(device)
         self.dispatched = {v: 0 for v in self._steps}
+
+    def init(self, root):
+        roots, active = root
+        return self._init(roots, active)
+
+    @staticmethod
+    def scalars(state) -> dict:
+        return B.batch_scalars(state)
+
+    @staticmethod
+    def finalize(state):
+        return B.finalize(state)
 
     @staticmethod
     def variant_for(td_next: int, bu_next: int) -> str:
@@ -143,11 +167,11 @@ class CohortBatchBackend:
         self.dispatched[variant] += 1
         return self._steps[variant](state)
 
-    def row(self, pre, post) -> dict:
+    def row(self, pre, post, seconds) -> dict:
         """The level's stats-row fields beyond the driver's own."""
-        # td/bu_lanes count active lanes per direction; with the hub/tail
-        # split off the hub counters are zero and the hub lane direction
-        # mirrors the tail's, as in the reference's rows.
+        # td/bu_lanes count active lanes with ANY side in that direction;
+        # with the hub/tail split off the hub counters are zero and the hub
+        # lane direction mirrors the tail's, as in the reference's rows.
         used_td = int(pre["td_next"])
         used_bu = int(pre["bu_next"])
         nf_hub = int(pre["nf_hub"])
@@ -170,6 +194,41 @@ class CohortBatchBackend:
             lane_hub_frontier=[int(x) for x in pre["nf_hub_lanes"]],
             lane_active=[bool(x) for x in pre["active_lanes"]],
         )
+
+
+class SingleStepBackend:
+    """One root: one `(state, bu) -> state` step per level.
+
+    Wraps `repro_torch.core.bfs`'s `init_state`, `make_level_step` and
+    `state_scalars`. The step's direction comes from the last sync
+    (`bu_next`), so the host branches without a second device read. Compute
+    and exchange are one step, so each row has `compute_s == seconds` and
+    `exchange_s == 0.0`.
+    """
+
+    def __init__(self, init_fn: Callable, step_fn: Callable,
+                 scalars_fn: Callable, num_vertices: int,
+                 device: torch.device):
+        self._init = init_fn
+        self._step = step_fn
+        self.scalars = scalars_fn
+        self.depth_bound = max(num_vertices - 1, 0)
+        self.device = torch.device(device)
+
+    def init(self, root):
+        return self._init(int(root))
+
+    def step(self, state, sync):
+        return self._step(state, sync["bu_next"])
+
+    @staticmethod
+    def row(pre, post, seconds) -> dict:
+        return dict(direction="bu" if post["bu"] else "td",
+                    compute_s=seconds, exchange_s=0.0)
+
+    @staticmethod
+    def finalize(state):
+        return B.finalize(state)
 
 
 # ------------------------------------------------------------------ driver --
@@ -201,21 +260,27 @@ def host_sync(payload: dict) -> dict:
 class LevelDriver:
     """Run a whole search as host-synced per-level steps over a backend."""
 
-    def __init__(self, backend: CohortBatchBackend):
+    def __init__(self, backend):
         self.backend = backend
 
-    def run(self, roots, active, on_level: Optional[Callable] = None,
+    def run(self, root, on_level: Optional[Callable] = None,
             control: Optional[QueryControl] = None):
-        """A root batch -> (parent, level, per_level_stats).
+        """One search -> (parent, level, per_level_stats, timings).
 
-        `on_level(row)` fires the moment each level's stats land on the
-        host. `control` is checked once per level before stepping; on abort
-        the typed error carries the rows completed so far.
+        `root` is what the backend's `init` takes. `on_level(row)` fires the
+        moment each level's stats land on the host. `control` is checked
+        once per level before stepping; on abort the typed error carries the
+        rows completed so far. `timings` holds the out-of-loop phases
+        (init_s, agg_s) and `driver_overhead_s`, the wall time the host loop
+        spent outside the timed steps.
         """
         b = self.backend
-        state = b.init(roots, active)
+        t_run = time.perf_counter()
+        state = b.init(root)
+        fence(b.device)
+        init_s = time.perf_counter() - t_run
         stats: list = []
-        pre = host_sync(B.batch_scalars(state))
+        pre = host_sync(b.scalars(state))
         while pre["nf"] > 0 and pre["cur"] < b.depth_bound:
             if control is not None:
                 try:
@@ -227,13 +292,18 @@ class LevelDriver:
             state = b.step(state, pre)
             fence(b.device)
             seconds = time.perf_counter() - t0
-            post = host_sync(B.batch_scalars(state))
+            post = host_sync(b.scalars(state))
             row = dict(level=post["cur"], seconds=seconds,
                        frontier_size=pre["nf"], frontier_edges=pre["mf"])
-            row.update(b.row(pre, post))
+            row.update(b.row(pre, post, seconds))
             stats.append(row)
             if on_level:
                 on_level(row)
             pre = post
-        parent, level = B.finalize(state)
-        return parent, level, stats
+        t0 = time.perf_counter()
+        parent, level = b.finalize(state)
+        agg_s = time.perf_counter() - t0
+        overhead = (time.perf_counter() - t_run) - init_s - agg_s \
+            - sum(r["seconds"] for r in stats)
+        return parent, level, stats, dict(init_s=init_s, agg_s=agg_s,
+                                          driver_overhead_s=max(overhead, 0.0))

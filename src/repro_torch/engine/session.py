@@ -2,10 +2,11 @@
 
 A `GraphSession` holds one graph's device-side products, each built at
 most once: the CSR tensors (`device_graph`), the degree-bucketed ELL tiles
-(`ell_tiles`), and the cohort step functions keyed by
-(config, batch bucket, variant). PyTorch runs eagerly, so a "step
-function" is a bound Python function, not a compiled executable; caching it
-keeps the session the one owner of what a query runs.
+(`ell_tiles`), the cohort step functions keyed by
+(config, batch bucket, variant) and the single-root step per config.
+PyTorch runs eagerly, so a "step function" is a bound Python function, not
+a compiled executable; caching it keeps the session the one owner of what
+a query runs. `warm` records which warm-up searches already ran.
 
 On a CUDA device the session also builds the kernels (`kernels._build`)
 before its first query, so the build never lands inside a timed search.
@@ -54,6 +55,7 @@ class GraphSession:
         self._lock = threading.RLock()
         self._device_graph: Optional[DeviceGraph] = None
         self._objects: dict[Any, Any] = {}
+        self._warmed: set = set()
         self._kernels_built = False
 
     def device_graph(self) -> DeviceGraph:
@@ -92,3 +94,13 @@ class GraphSession:
                     got = build()
                     self._objects[key] = got
         return got
+
+    def warm(self, key, run: Callable[[], Any]) -> None:
+        """Run `run()` (a warm-up search) once per `key`. Only a run that
+        returns is recorded: one that raises is tried again next time."""
+        if key in self._warmed:
+            return
+        with self._lock:
+            if key not in self._warmed:
+                run()
+                self._warmed.add(key)

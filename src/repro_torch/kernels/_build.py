@@ -23,7 +23,7 @@ import threading
 import time
 from pathlib import Path
 
-SOURCES = ("bottomup", "frontier_fused", "topdown")
+SOURCES = ("bottomup", "frontier_fused", "hub", "topdown")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -36,8 +36,10 @@ ENTRY_POINTS = {
                  [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _P]),
     "frontier_fused": ("repro_frontier_fused_batch",
                        [_P, _P, _P, _P, _P, _I64, _I64, _I, _P]),
+    "hub": ("repro_hub_bottomup_batch",
+            [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _P]),
     "topdown": ("repro_topdown_batch",
-                [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _P]),
+                [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _P]),
 }
 
 _lock = threading.RLock()      # build_all and first loads

@@ -7,7 +7,8 @@ that lane; `parent` is the clipped neighbour id at the lowest such slot,
 INT_MAX otherwise. `deg` int32[B, R] is lane-masked, `nbrs` int32[R, W] is
 shared across lanes, `frontier` uint8[B, V] is per lane. Degrees never
 exceed W (an ELL guarantee). `kernels.ops.bottomup_batch` picks between the
-two by the tensors' device.
+two by the tensors' device. One lane (the JAX package's `bottomup_pallas`)
+is the same launch with B = 1 (`kernels.ops.bottomup`).
 """
 from __future__ import annotations
 
@@ -63,3 +64,11 @@ def bottomup_batch_plain(deg: torch.Tensor, nbrs: torch.Tensor,
     parent = safe[None].expand(b, r, w).gather(2, first[:, :, None])[:, :, 0]
     parent = torch.where(found, parent, INT_MAX)
     return found.to(torch.uint8), parent
+
+
+def bottomup_plain(deg: torch.Tensor, nbrs: torch.Tensor,
+                   frontier: torch.Tensor):
+    """One lane (the JAX package's `bottomup_ref`): `deg` int32[R],
+    `frontier` uint8[V] -> (found uint8[R], parent int32[R])."""
+    found, parent = bottomup_batch_plain(deg[None], nbrs, frontier[None])
+    return found[0], parent[0]

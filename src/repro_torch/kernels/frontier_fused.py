@@ -6,7 +6,9 @@ Semantics (the JAX package's `frontier_fused_batch_pallas`): per lane, the
 set flags and `mf` = the sum of `deg` over them, both int32 (wrapping like
 the reference's int32 sums). `flags` uint8[B, V] per lane, `deg` int32[V]
 shared. `kernels.ops.frontier_fused_batch` pads V for the kernel and picks
-between the two by the tensors' device.
+between the two by the tensors' device. One lane (the JAX package's
+`frontier_fused_pallas`, with 0-dim `nf`/`mf`) is the same launch with
+B = 1 (`kernels.ops.frontier_fused`).
 """
 from __future__ import annotations
 
@@ -49,3 +51,10 @@ def frontier_fused_batch_plain(flags: torch.Tensor, deg: torch.Tensor):
     mf = torch.where(on, deg.to(torch.int64)[None, :], 0).sum(dim=1).to(
         torch.int32)
     return packed, nf, mf
+
+
+def frontier_fused_plain(flags: torch.Tensor, deg: torch.Tensor):
+    """One lane: `flags` uint8[V] -> (packed uint32[ceil(V/32)], nf int32,
+    mf int32), the counts 0-dim."""
+    packed, nf, mf = frontier_fused_batch_plain(flags[None], deg)
+    return packed[0], nf[0], mf[0]

@@ -1,16 +1,19 @@
-"""Public wrappers for the batched kernels: empty tiles, V padding, dispatch.
+"""Public wrappers for the kernels: empty tiles, V padding, dispatch.
 
-Mirrors the JAX package's `kernels/ops.py` batch wrappers. An empty tile
-(R == 0 or B == 0) returns empty outputs without a launch. The tensors'
-device decides what runs: a CUDA tensor launches the hand-written kernel
-(or raises), a CPU tensor runs the plain PyTorch version. There is no
-fallback from one to the other.
+Mirrors the JAX package's `kernels/ops.py`: the batched wrappers (a lane
+axis, the ELL tile shared across lanes) and the single-lane ones. An empty
+tile (R == 0 or B == 0) returns empty outputs without a launch. The
+tensors' device decides what runs: a CUDA tensor launches the hand-written
+kernel (or raises), a CPU tensor runs the plain PyTorch version. There is
+no fallback from one to the other. A single-lane kernel is a launch of its
+batched kernel with B = 1, on views of the caller's tensors.
 
-The JAX wrappers pad rows to the Pallas block and slice them back off; the
-CUDA kernels take any row count, so rows are not padded here. Only the
-packing kernel pads V, to whole 32-flag words.
+The JAX wrappers pad rows to the Pallas block (and hub tiles to 128
+columns) and slice them back off; the CUDA kernels take any shape, so
+nothing is padded here but V, to whole 32-flag words, for the packing
+kernel.
 
-`LAUNCHES` counts kernel launches per kernel; only a launch adds to it.
+`LAUNCHES` counts kernel launches per wrapper; only a launch adds to it.
 
 The JAX wrappers also check that a lane's frontier fits the TPU's VMEM
 (`check_frontier_residency`). That is a TPU limit with no counterpart here:
@@ -23,10 +26,13 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import bottomup as _bu
 from repro_torch.kernels import frontier_fused as _ff
+from repro_torch.kernels import hub as _hub
 from repro_torch.kernels import topdown as _td
 
 LAUNCHES = {"bottomup_batch": 0, "topdown_batch": 0,
-            "frontier_fused_batch": 0}
+            "frontier_fused_batch": 0, "hub_bottomup_batch": 0,
+            "bottomup": 0, "topdown": 0, "frontier_fused": 0,
+            "hub_bottomup": 0}
 
 
 def reset_launches() -> None:
@@ -41,6 +47,14 @@ def pad_words(x: torch.Tensor) -> torch.Tensor:
     return (F.pad(x, (0, pad)) if pad else x).contiguous()
 
 
+def _no_rows(b: int, device):
+    return (torch.zeros((b, 0), dtype=torch.uint8, device=device),
+            torch.zeros((b, 0), dtype=torch.int32, device=device))
+
+
+# ----------------------------------------------------------- batched (lane) --
+
+
 def bottomup_batch(deg, nbrs, frontier, *, slab: int = 32):
     """Batched bottom-up first-hit scan: (found uint8[B, R], parent int32[B, R]).
 
@@ -52,12 +66,27 @@ def bottomup_batch(deg, nbrs, frontier, *, slab: int = 32):
     del slab
     b, r = deg.shape
     if r == 0 or b == 0:
-        return (torch.zeros((b, 0), dtype=torch.uint8, device=deg.device),
-                torch.zeros((b, 0), dtype=torch.int32, device=deg.device))
+        return _no_rows(b, deg.device)
     if not deg.is_cuda:
         return _bu.bottomup_batch_plain(deg, nbrs, frontier)
     out = _bu.bottomup_batch_cuda(deg.contiguous(), nbrs, frontier)
     LAUNCHES["bottomup_batch"] += 1
+    return out
+
+
+def hub_bottomup_batch(deg, nbrs, frontier):
+    """Batched hub-side bottom-up: (found uint8[B, R], parent int32[B, R]).
+
+    `deg` int32[B, R] per-lane cohort-masked degrees, `nbrs` int32[R, W]
+    the shared (wide) hub tile, `frontier` uint8[B, V] per lane.
+    """
+    b, r = deg.shape
+    if r == 0 or b == 0:
+        return _no_rows(b, deg.device)
+    if not deg.is_cuda:
+        return _hub.hub_bottomup_batch_plain(deg, nbrs, frontier)
+    out = _hub.hub_bottomup_batch_cuda(deg.contiguous(), nbrs, frontier)
+    LAUNCHES["hub_bottomup_batch"] += 1
     return out
 
 
@@ -92,3 +121,62 @@ def frontier_fused_batch(flags, deg):
     out = _ff.frontier_fused_batch_cuda(pad_words(flags), pad_words(deg))
     LAUNCHES["frontier_fused_batch"] += 1
     return out
+
+
+# --------------------------------------------------------------- one lane --
+
+
+def bottomup(deg, nbrs, frontier, *, slab: int = 32):
+    """Bottom-up first-hit scan of one lane: (found uint8[R], parent
+    int32[R]) for `deg` int32[R] and `frontier` uint8[V]; `slab` as in
+    `bottomup_batch`."""
+    del slab
+    if deg.shape[0] == 0:
+        return tuple(t[0] for t in _no_rows(1, deg.device))
+    if not deg.is_cuda:
+        return _bu.bottomup_plain(deg, nbrs, frontier)
+    found, parent = _bu.bottomup_batch_cuda(deg.contiguous()[None], nbrs,
+                                            frontier[None])
+    LAUNCHES["bottomup"] += 1
+    return found[0], parent[0]
+
+
+def hub_bottomup(deg, nbrs, frontier):
+    """Hub-side bottom-up of one lane: (found uint8[R], parent int32[R])."""
+    if deg.shape[0] == 0:
+        return tuple(t[0] for t in _no_rows(1, deg.device))
+    if not deg.is_cuda:
+        return _hub.hub_bottomup_plain(deg, nbrs, frontier)
+    found, parent = _hub.hub_bottomup_batch_cuda(deg.contiguous()[None], nbrs,
+                                                 frontier[None])
+    LAUNCHES["hub_bottomup"] += 1
+    return found[0], parent[0]
+
+
+def topdown(deg, nbrs, visited):
+    """Top-down check of one lane: (fresh uint8[C, W], dst int32[C, W]) for
+    `deg` int32[C] and `visited` uint8[V]; `dst = clip(nbrs, 0, V-1)`."""
+    c, w = nbrs.shape
+    if c == 0:
+        return (torch.zeros((0, w), dtype=torch.uint8, device=deg.device),
+                torch.zeros((0, w), dtype=torch.int32, device=deg.device))
+    if not deg.is_cuda:
+        return _td.topdown_plain(deg, nbrs, visited)
+    out = _td.topdown_cuda(deg.contiguous(), nbrs, visited)
+    LAUNCHES["topdown"] += 1
+    return out
+
+
+def frontier_fused(flags, deg):
+    """Fused pack + count + edge mass of one lane: (packed
+    uint32[ceil(V/32)], nf int32, mf int32), the counts 0-dim."""
+    v = flags.shape[0]
+    if v == 0:
+        z = torch.zeros((), dtype=torch.int32, device=flags.device)
+        return torch.zeros(0, dtype=torch.uint32, device=flags.device), z, z
+    if not flags.is_cuda:
+        return _ff.frontier_fused_plain(flags, deg)
+    packed, nf, mf = _ff.frontier_fused_batch_cuda(pad_words(flags[None]),
+                                                   pad_words(deg))
+    LAUNCHES["frontier_fused"] += 1
+    return packed[0], nf[0], mf[0]

@@ -237,11 +237,10 @@ def test_decide_direction_float32_thresholds(heuristic, magnitude):
 def test_unported_paths_raise_and_name_the_roadmap():
     g = GRAPHS["rmat"][0]
     eng = Engine(g, device="cpu")
-    for backend in ("sharded", "stepper"):
+    for kw in (dict(backend="sharded"), dict(backend="stepper", n_parts=2),
+               dict(n_parts=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.bfs(0, backend=backend)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TB.BFSConfig(hub_split=True)
+            eng.bfs(0, **kw)
     with pytest.raises(ValueError):
         eng.bfs(0, n_parts=2, backend="fused")
     plan = eng.plan(TB.BFSConfig(heuristic="beamer"))

@@ -3,7 +3,7 @@
 * an AST scan of `src/repro_torch/**` and `chip_smoke.py` for imports of
   `jax` or `repro`;
 * a subprocess that blocks both on `sys.meta_path`, imports the port and
-  runs a CPU search;
+  runs CPU searches on every path (unsplit, hub split, stepper, `bfs()`);
 * `Engine(g)` with no device asks for CUDA and raises without it.
 """
 import ast
@@ -56,8 +56,13 @@ sys.meta_path.insert(0, Block())
 import numpy as np
 from repro_torch.core import graph as G
 from repro_torch.engine import Engine
+from repro_torch.core.bfs import BFSConfig, bfs
 g = G.rmat(8, seed=1)
-res = Engine(g, device="cpu").bfs([0, 5, 9], validate=True)
+eng = Engine(g, device="cpu")
+res = eng.bfs([0, 5, 9], validate=True)
+eng.bfs([0, 5], BFSConfig(hub_split=True, hub_deg=32), validate=True)
+eng.bfs([0, 5], backend="stepper", validate=True)
+bfs(g, 0, device="cpu")
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
                for m in sys.modules)
 print("levels", int(res.num_levels.max()))

@@ -18,6 +18,7 @@ from repro.kernels import ops as jops
 from repro_torch.kernels import _build
 from repro_torch.kernels import bottomup as tbu
 from repro_torch.kernels import frontier_fused as tff
+from repro_torch.kernels import hub as thub
 from repro_torch.kernels import ops
 from repro_torch.kernels import topdown as ttd
 
@@ -140,6 +141,13 @@ def test_cpu_tensors_never_touch_the_build(monkeypatch):
                       torch.from_numpy(fr))
     ops.frontier_fused_batch(torch.from_numpy(fr),
                              torch.arange(64, dtype=torch.int32))
+    ops.hub_bottomup_batch(torch.from_numpy(deg), torch.from_numpy(nbrs),
+                           torch.from_numpy(fr))
+    d0, t0 = torch.from_numpy(deg[0]), torch.from_numpy(fr[0])
+    ops.bottomup(d0, torch.from_numpy(nbrs), t0)
+    ops.hub_bottomup(d0, torch.from_numpy(nbrs), t0)
+    ops.topdown(d0, torch.from_numpy(nbrs), t0)
+    ops.frontier_fused(t0, torch.arange(64, dtype=torch.int32))
     assert ops.LAUNCHES == before
 
 
@@ -152,6 +160,10 @@ def test_launchers_refuse_cpu_tensors():
         ttd.topdown_batch_cuda(deg, nbrs, fr)
     with pytest.raises(ValueError, match="CUDA"):
         tff.frontier_fused_batch_cuda(fr, torch.zeros(40, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        thub.hub_bottomup_batch_cuda(deg, nbrs, fr)
+    with pytest.raises(ValueError, match="CUDA"):
+        ttd.topdown_cuda(deg[0], nbrs, fr[0])
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -192,7 +204,8 @@ def test_concurrent_builds_run_one_compiler_per_source(monkeypatch, tmp_path):
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_cuda():
-    """On a card: every kernel against its plain version, bitwise."""
+    """On a card: every kernel against its plain version, bitwise, through
+    the batched wrappers and the single-lane ones (lane 0)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (run on the GPU host)")
     dev = torch.device("cuda")
@@ -203,6 +216,9 @@ def test_kernels_match_plain_on_cuda():
         f1, p1 = ops.bottomup_batch(deg, nbrs, table)
         f2, p2 = tbu.bottomup_batch_plain(deg, nbrs, table)
         assert torch.equal(f1, f2) and torch.equal(p1, p2)
+        f1, p1 = ops.hub_bottomup_batch(deg, nbrs, table)
+        f2, p2 = thub.hub_bottomup_batch_plain(deg, nbrs, table)
+        assert torch.equal(f1, f2) and torch.equal(p1, p2)
         assert torch.equal(ops.topdown_batch(deg, nbrs, table),
                            ttd.topdown_batch_plain(deg, nbrs, table))
         vdeg = torch.arange(v, dtype=torch.int32, device=dev)
@@ -210,4 +226,16 @@ def test_kernels_match_plain_on_cuda():
         p = tff.frontier_fused_batch_plain(table, vdeg)
         assert torch.equal(a[0].view(torch.int32), p[0].view(torch.int32))
         assert torch.equal(a[1], p[1]) and torch.equal(a[2], p[2])
+        d0, t0 = deg[0], table[0]
+        for got, want in (
+                (ops.bottomup(d0, nbrs, t0), tbu.bottomup_plain(d0, nbrs, t0)),
+                (ops.hub_bottomup(d0, nbrs, t0),
+                 thub.hub_bottomup_plain(d0, nbrs, t0)),
+                (ops.topdown(d0, nbrs, t0), ttd.topdown_plain(d0, nbrs, t0)),
+                (ops.frontier_fused(t0, vdeg),
+                 tff.frontier_fused_plain(t0, vdeg))):
+            for x, y in zip(got, want):
+                if x.dtype == torch.uint32:
+                    x, y = x.view(torch.int32), y.view(torch.int32)
+                assert x.shape == y.shape and torch.equal(x, y)
         assert all(ops.LAUNCHES[k] == n[k] + 1 for k in n)
