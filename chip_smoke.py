@@ -8,15 +8,24 @@ nothing of the JAX package. Phases, in order (any failure ends the run with
 a nonzero exit; nothing is caught):
 
 1. Device: the card's name and power limit, then the kernels' build time.
-2. Each of the eight kernels against its plain PyTorch version on random
-   inputs (ragged R, V not a multiple of 32, masked lanes, degree-0 rows,
-   B in {1, 8}, rows of width 32 to 262,144), bitwise; the single-lane
-   kernels on lane 0 of the same inputs.
+2. Each of the eight BFS kernels against its plain PyTorch version on
+   random inputs (ragged R, V not a multiple of 32, masked lanes, degree-0
+   rows, B in {1, 8}, rows of width 32 to 262,144), bitwise; the
+   single-lane kernels on lane 0 of the same inputs. The decode attention
+   kernel against its plain version on random (B, S, K, g, h) cases up to
+   gemma2-9b's, fp32 and bf16, cap 0 and 50, cache_len 1, S and random
+   (fp32 within 3e-5; bf16 within one bf16 step, rtol 2^-7, atol 1e-5),
+   and exact zeros at cache_len 0. Then each case with q scaled by 30, so
+   that scores reach the cap: the cap-50 output matches the plain one and
+   is far from the kernel's own cap-0 output (standard normal scores sit
+   where the cap changes them by about 1e-4, below any tolerance).
 3. Whole-search parity, `Engine(g, device="cuda")` against
    `Engine(g, device="cpu")` on RMAT scale 16: 8 roots batched and 2 in
    Graph500 mode, heuristics paper and beamer, unsplit and with
    `hub_split=True`; 2 roots through `backend="stepper"`. Parents, levels
-   and the per-level rows must be equal.
+   and the per-level rows must be equal. Serving parity (3b): gemma2-9b
+   and yi-9b smoke in fp32, prefill and 8 greedy decode steps on the card
+   against the same weights on the CPU: equal tokens, logits within 1e-4.
 4. The paths at full size, through `Engine.bfs` on Graph500 RMAT at
    --scale (generated once): unsplit (8 roots batched, then 4 in Graph500
    mode), hub split (the same), and 2 roots through the stepper. Launch
@@ -25,10 +34,20 @@ a nonzero exit; nothing is caught):
    vectorised Graph500 check. Then each kernel is held against its plain
    version on the inputs captured at the level where it had the most live
    rows (2b).
-5. Kernel times at those shapes: CUDA events (median), the plain version's
-   time and the bound (bytes this call needs / 3.35 TB/s); a profile of
-   one search on each path.
-6. One JSON line listing the kernels, then the result line.
+5. BFS kernel times at those shapes: CUDA events (median), the plain
+   version's time and the bound (bytes this call needs / 3.35 TB/s); a
+   profile of one search on each path.
+6. The serving path at gemma2-9b's full width (42 layers, bf16, random
+   weights from --seed), after the BFS phases' tensors are freed:
+   `launch.serve.serve` (what `main` runs) with batch 4, a 4,200-token
+   prompt and 32 greedy tokens. The decode kernel's launch count is reset
+   just before and read just after (42 x 31); its calls at the first and
+   last decode step on layers 0 (local) and 1 (global) are captured and
+   held against the plain version (bf16, one step). Then the kernel's time at
+   that shape (cap 50 and cap 0), its plain version's, one
+   `F.scaled_dot_product_attention` call at cap 0 as the library
+   yardstick, and a profile of one decode step.
+7. One JSON line listing the kernels, then the result line.
 
 `--out FILE` also writes the full record (timings, shapes, profiles) as
 JSON.
@@ -36,6 +55,7 @@ JSON.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -49,7 +69,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 PARITY_SCALE = 16              # GPU-vs-CPU whole-search parity graph
 TIMING_REPS = 20               # CUDA-event samples per timed kernel
-KERNELS = {   # name: (CUDA source, the TPU kernel's `pl.pallas_call` line)
+# name: (CUDA source, the TPU kernel's `pl.pallas_call` line)
+BFS_KERNELS = {
     "bottomup_batch": ("src/repro_torch/kernels/csrc/bottomup.cu",
                        "src/repro/kernels/bottomup.py:173"),
     "topdown_batch": ("src/repro_torch/kernels/csrc/topdown.cu",
@@ -67,6 +88,23 @@ KERNELS = {   # name: (CUDA source, the TPU kernel's `pl.pallas_call` line)
     "hub_bottomup": ("src/repro_torch/kernels/csrc/hub.cu",
                      "src/repro/kernels/hub.py:77"),
 }
+DECODE = ("decode_attention", "src/repro_torch/kernels/csrc/decode_attn.cu",
+          "src/repro/kernels/decode_attn.py:90")
+# (B, S, K, g, h): the JAX kernel tests' sweep, tiny edges, gemma2-9b's.
+DECODE_CASES = [(2, 1024, 4, 2, 64), (3, 700, 2, 5, 32), (1, 64, 1, 1, 16),
+                (1, 1, 1, 1, 8), (4, 4232, 8, 2, 256)]
+# (rtol, atol) of kernel against plain: fp32 sums in another order; bf16
+# one step of the value (both round the same fp32 result, up to its order)
+DECODE_TOL = {"float32": (3e-5, 3e-5), "bfloat16": (2 ** -7, 1e-5)}
+CAP_SCALE = 30.0     # q scale at which the scores reach the soft cap of 50
+# SDPA against the plain version: it rounds p to bf16 before p @ v
+SDPA_TOL = 1e-2
+# The serve run: gemma2-9b at full width, cut from configs/shapes.py's
+# decode_32k (B = 128, S = 32,768) to one card.
+SERVE = dict(arch="gemma2-9b", batch=4, prompt_len=4200, gen=32)
+SDPA_NOTE = ("F.scaled_dot_product_attention (enable_gqa, boolean mask from "
+             "cache_len) computes the cap-0 function; no single PyTorch call "
+             "computes the soft-capped one the model runs (cap 50)")
 # The kernels each full-size path must launch.
 PATH_KERNELS = {
     "unsplit": ("bottomup_batch", "topdown_batch", "frontier_fused_batch"),
@@ -293,7 +331,7 @@ def install_capture():
     restore): set `path[0]` to label the calls that follow."""
     from repro_torch.kernels import ops
     calls, level, path = [], [0], [None]
-    saved = {n: getattr(ops, n) for n in KERNELS}
+    saved = {n: getattr(ops, n) for n in BFS_KERNELS}
 
     def wrap(name):
         def fn(*args, **kw):
@@ -303,7 +341,7 @@ def install_capture():
             return saved[name](*args, **kw)
         return fn
 
-    for n in KERNELS:
+    for n in BFS_KERNELS:
         setattr(ops, n, wrap(n))
 
     def restore():
@@ -486,60 +524,191 @@ def level_rows(res):
             for r in res]
 
 
-# ------------------------------------------------------------------ main --
+# ------------------------------------------------------------- serving --
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--scale", type=int, default=22)
-    ap.add_argument("--out", default=None,
-                    help="also write the full record as JSON to this file")
-    args = ap.parse_args()
-    t_start = time.perf_counter()
-
+def decode_inputs(rng, dev, dtype, b, s, k, g, h, clen):
+    """q [B,K,g,h], k/v caches [B,S,K,h] (standard normal, in `dtype`),
+    cache_len int32[B] on the card."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs only on a GPU",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.join(REPO, "src"))
+    q, kc, vc = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev, dtype) for shape in ((b, k, g, h), (b, s, k, h),
+                                                  (b, s, k, h)))
+    return q, kc, vc, torch.as_tensor(np.asarray(clen, np.int32), device=dev)
+
+
+def decode_vs_plain(args, cap, out=None):
+    """The kernel's output on `args` (or `out`, captured from a run)
+    against the plain version on the same tensors, within the dtype's
+    tolerance; returns max |kernel - plain| in fp32."""
+    import torch
+    from repro_torch.kernels import decode_attn, ops
+    if out is None:
+        out = ops.decode_attention(*args, logit_cap=cap)
+    want = decode_attn.decode_attention_plain(*args, logit_cap=cap)
+    rtol, atol = DECODE_TOL[str(args[0].dtype).removeprefix("torch.")]
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    return float((out.float() - want.float()).abs().max())
+
+
+def phase_decode_kernel(rng, dev):
+    """Every case in fp32 and bf16, cap 0 and 50, cache_len all 1, all S
+    and random; then cache_len 0 must give exact zeros; then (S > 1) q
+    scaled by CAP_SCALE at cache_len S: the cap-50 output matches the
+    plain one and differs from the kernel's cap-0 output by more than
+    1000 x the fp32 tolerance. Returns (calls, max |kernel - plain|, the
+    least cap-50 vs cap-0 gap)."""
+    import torch
+    from repro_torch.kernels import ops
+    err, n, gap = 0.0, 0, float("inf")
+    for b, s, k, g, h in DECODE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for clen in ([1] * b, [s] * b, rng.integers(1, s + 1, b)):
+                args = decode_inputs(rng, dev, dtype, b, s, k, g, h, clen)
+                for cap in (0.0, 50.0):
+                    err = max(err, decode_vs_plain(args, cap))
+                    n += 1
+            args = decode_inputs(rng, dev, dtype, b, s, k, g, h, [0] * b)
+            zero = ops.decode_attention(*args, logit_cap=50.0)
+            assert not bool(zero.any()), "cache_len 0: output is not zeros"
+            if s == 1:
+                continue
+            q, kc, vc, clen = decode_inputs(rng, dev, dtype, b, s, k, g, h,
+                                            [s] * b)
+            args = (q * CAP_SCALE, kc, vc, clen)
+            capped = ops.decode_attention(*args, logit_cap=50.0)
+            err = max(err, decode_vs_plain(args, 50.0, capped))
+            uncapped = ops.decode_attention(*args, logit_cap=0.0)
+            n += 2
+            case_gap = float((capped.float() - uncapped.float()).abs().max())
+            assert case_gap > 1000 * DECODE_TOL["float32"][1], \
+                f"{(b, s, k, g, h)} {dtype}: the soft cap moves the output " \
+                f"by only {case_gap}"
+            gap = min(gap, case_gap)
+    torch.cuda.synchronize()
+    return n, err, gap
+
+
+def phase_serve_parity(seed, dev):
+    """Smoke configs in fp32 (matmuls in full fp32): the same weights and
+    prompt on the card and on the CPU, prefill and 8 greedy steps."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.models import decode as D, model as M
+    from repro_torch.train.serve_step import greedy_generate
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    worst = 0.0
+    for arch in ("gemma2-9b", "yi-9b"):
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+        cpu = M.init_params(cfg, torch.Generator().manual_seed(seed))
+        gpu = copy.deepcopy(cpu).to(dev)
+        prompt = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab, (2, 24), dtype=np.int32))
+        lc, _ = D.prefill(cfg, cpu, {"tokens": prompt}, 32)
+        lg, _ = D.prefill(cfg, gpu, {"tokens": prompt.to(dev)}, 32)
+        worst = max(worst, float((lg.cpu() - lc).abs().max()))
+        assert worst <= 1e-4, f"{arch}: prefill logits differ by {worst}"
+        tc = greedy_generate(cfg, cpu, prompt, 9, 33)
+        tg = greedy_generate(cfg, gpu, prompt.to(dev), 9, 33)
+        assert torch.equal(tg.cpu(), tc), f"{arch}: greedy tokens differ"
+    return worst
+
+
+def install_decode_capture(n_layers, steps):
+    """Wrap `ops.decode_attention`: call c is decode step c // n_layers,
+    layer c % n_layers; the calls of the first and last step on layers 0
+    (local) and 1 (global) are kept with clones of their inputs (the
+    caches change in place) and their outputs. Returns (kept, restore)."""
+    from repro_torch.kernels import ops
+    saved, kept, count = ops.decode_attention, [], [0]
+
+    def fn(*args, **kw):
+        step, layer = divmod(count[0], n_layers)
+        count[0] += 1
+        out = saved(*args, **kw)
+        if step in (0, steps - 1) and layer in (0, 1):
+            kept.append((step, layer, tuple(a.clone() for a in args),
+                         kw["logit_cap"], out))
+        return out
+
+    ops.decode_attention = fn
+
+    def restore():
+        ops.decode_attention = saved
+    return kept, restore
+
+
+def decode_bound(q, kc, clen):
+    """(bytes, ops) one decode-attention call needs: K and V rows up to
+    cache_len, q and the output once; a multiply-add each for q.k and
+    p.v per element of those rows and query heads."""
+    b, kk, g, h = q.shape
+    n = int(clen.clamp(0, kc.shape[1]).sum())
+    esize = q.element_size()
+    nbytes = 2 * n * kk * h * esize + 2 * q.numel() * esize + 4 * b
+    return nbytes, 4 * n * kk * g * h
+
+
+def time_decode(q, kc, vc, clen, flush):
+    """Kernel ms at cap 50 and cap 0, plain ms at both, SDPA ms at cap 0
+    (the library call, checked against the plain cap-0 output)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attn
+    b, kk, g, h = q.shape
+    s = kc.shape[1]
+    out = {}
+    for cap in (50.0, 0.0):
+        out[f"ms_cap{cap:g}"] = time_ms(
+            lambda: decode_attn.decode_attention_cuda(q, kc, vc, clen,
+                                                      logit_cap=cap),
+            TIMING_REPS, flush)
+        out[f"plain_ms_cap{cap:g}"] = time_ms(
+            lambda: decode_attn.decode_attention_plain(q, kc, vc, clen,
+                                                       logit_cap=cap),
+            TIMING_REPS, flush)
+    qs = q.reshape(b, kk * g, 1, h)
+    ks, vs = kc.transpose(1, 2), vc.transpose(1, 2)       # [B, K, S, h]
+    mask = (torch.arange(s, device=q.device)[None] < clen[:, None])[
+        :, None, None]                                     # [B, 1, 1, S]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                              enable_gqa=True)
+    got = sdpa().reshape(b, kk, g, h)
+    want = decode_attn.decode_attention_plain(q, kc, vc, clen)
+    torch.testing.assert_close(got.float(), want.float(), rtol=SDPA_TOL,
+                               atol=SDPA_TOL)
+    out["library_ms_cap0"] = time_ms(sdpa, TIMING_REPS, flush)
+    return out
+
+
+def profile_decode_step(step):
+    """One decode step under torch.profiler: top device ops, and the
+    decode kernel's and the matrix products' shares of device time."""
+    prof = profile_search(step, top=1 << 20)
+    busy = prof["device_busy_ms"]
+
+    def share(*keys):
+        return sum(r["device_ms"] for r in prof["top"]
+                   if any(k in r["op"].lower() for k in keys)) / busy
+    prof["decode_attn_share"] = share("decode_attn")
+    prof["matmul_share"] = share("gemm", "matmul", "cutlass", "xmma",
+                                 "cublas", "nvjet")
+    prof["top"] = prof["top"][:12]
+    return prof
+
+
+def bfs_paths(args, rng, dev, record, errs):
+    """Phases 4, 2b and 5: the BFS paths on Graph500 RMAT at --scale; the
+    kernels line's entries of the eight BFS kernels."""
+    import torch
     from repro_torch.core import graph as G
     from repro_torch.engine import Engine
-    from repro_torch.kernels import _build, ops
-
-    dev = torch.device("cuda", 0)
-    rng = np.random.default_rng(args.seed)
-    record = dict(seed=args.seed, scale=args.scale)
-
-    # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    log(smi)
-    record["card"] = smi
-    record["torch"] = torch.__version__
-    build_s = _build.build_all()
-    record["build_s"] = build_s
-    log(f"phase 1: built {len(_build.SOURCES)} kernel sources in "
-        f"{build_s:.3f} s ({_build.BUILD_DIR})")
-
-    # 2. kernels against their plain versions, random inputs
-    errs = {n: 0 for n in KERNELS}
-    t0 = time.perf_counter()
-    n_cases, n_hub = phase_kernels(rng, np.random.default_rng([args.seed, 1]),
-                                   dev, errs)
-    log(f"phase 2: {n_cases} random cases per kernel, {n_hub} per hub "
-        f"kernel, bitwise equal ({time.perf_counter() - t0:.1f} s)")
-
-    # 3. whole-search parity, GPU against CPU
-    t0 = time.perf_counter()
-    phase_parity(PARITY_SCALE, rng)
-    record["parity_s"] = time.perf_counter() - t0
-    log(f"phase 3: scale-{PARITY_SCALE} searches equal on cuda and cpu "
-        f"({record['parity_s']:.1f} s)")
-
-    # 4. the paths at full size, on one graph
+    from repro_torch.kernels import ops
     from repro_torch.core import ell as ELL
     from repro_torch.core.bfs import BFSConfig
     t0 = time.perf_counter()
@@ -568,7 +737,7 @@ def main() -> int:
     pos = np.flatnonzero(g.degrees > 0)
     roots = rng.choice(pos, 12, replace=False)
     calls, path, restore = install_capture()
-    launches = {n: 0 for n in KERNELS}
+    launches = {n: 0 for n in BFS_KERNELS}
     runs = {}
 
     def drive(name, label, fn):
@@ -578,7 +747,7 @@ def main() -> int:
         t = time.perf_counter()
         res = fn()
         wall = time.perf_counter() - t
-        got = dict(ops.LAUNCHES)
+        got = {k: ops.LAUNCHES[k] for k in BFS_KERNELS}
         for k in PATH_KERNELS[name]:
             assert got[k] > 0, f"{k} never launched on the {name} path"
         for k, c in got.items():
@@ -634,7 +803,7 @@ def main() -> int:
     # 5. kernel times at the captured full-size shapes
     flush = torch.empty(1 << 27, dtype=torch.uint8, device=dev)
     entries = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces) in BFS_KERNELS.items():
         src_name = "hub_bottomup_batch" if name == "hub_bottomup" else name
         # the call moving the most bytes at that level
         _, lvl, _, cargs = max(
@@ -679,6 +848,178 @@ def main() -> int:
         for row in prof["top"]:
             log(f"    {row['device_ms']:10.2f} ms {row['calls']:6d}x "
                 f"{row['op']}")
+    return entries
+
+
+def serve_phase(args, dev, record, dec_err):
+    """Phase 6: gemma2-9b at full width through `launch.serve.serve`, its
+    captured decode calls against the plain version, the kernel's times
+    and a profile of one decode step; the kernels line's entry of the
+    decode kernel."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import decode as D
+    cfg = get_config(SERVE["arch"])
+    b, s0, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    steps = gen - 1
+    kept, restore = install_decode_capture(cfg.n_layers, steps)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    run = serve.serve(cfg, batch=b, prompt_len=s0, gen=gen, seed=args.seed,
+                      device=dev)
+    launches = ops.LAUNCHES["decode_attention"]
+    restore()
+    peak = torch.cuda.max_memory_allocated(dev)
+    assert launches == cfg.n_layers * steps, \
+        f"decode_attention launched {launches} times, not {cfg.n_layers} x " \
+        f"{steps}"
+    assert run.tokens.shape == (b, gen), run.tokens.shape
+    assert tuple(run.logits.shape) == (b, cfg.vocab)
+    assert bool(torch.isfinite(run.logits).all()), "non-finite logits"
+    assert sorted((st, ly) for st, ly, *_ in kept) == [
+        (0, 0), (0, 1), (steps - 1, 0), (steps - 1, 1)], "capture missed"
+    err = dec_err
+    for _, _, cargs, cap, out in kept:
+        err = max(err, decode_vs_plain(cargs, cap, out))
+    torch.cuda.synchronize()
+    record["serve"] = dict(
+        arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=cfg.n_heads, kv_heads=cfg.n_kv, head_dim=cfg.head_dim,
+        d_ff=cfg.d_ff, vocab=cfg.vocab, dtype=cfg.dtype, batch=b,
+        prompt_len=s0, gen=gen, decode_steps=steps, launches=launches,
+        init_s=run.init_s, prefill_s=run.prefill_s,
+        decode_ms_per_step=run.decode_s / steps * 1e3,
+        tokens_per_s=steps * b / run.decode_s, peak_bytes=peak,
+        tokens_head=run.tokens[:, :8].tolist())
+    log(f"phase 6: {cfg.name} at full width ({cfg.n_layers} layers, "
+        f"{cfg.dtype}), batch {b}, prompt {s0}, {gen} greedy tokens: weights "
+        f"{run.init_s:.1f} s, prefill {run.prefill_s:.3f} s, decode "
+        f"{run.decode_s / steps * 1e3:.2f} ms/step "
+        f"({steps * b / run.decode_s:.1f} tokens/s), peak memory "
+        f"{peak / 2**30:.2f} GiB; decode_attention launched {launches} = "
+        f"{cfg.n_layers} x {steps}; its calls at steps 0 and {steps - 1} on "
+        f"layers 0 and 1 equal the plain version (max |kernel - plain| "
+        f"{err:.3g}); tokens[0] {run.tokens[0, :8].tolist()}")
+
+    # the kernel's time at the serve shape, cache_len = the whole context
+    flush = torch.empty(1 << 27, dtype=torch.uint8, device=dev)
+    s = s0 + gen
+    q, kc, vc, clen = decode_inputs(
+        np.random.default_rng([args.seed, 3]), dev, torch.bfloat16, b, s,
+        cfg.n_kv, cfg.n_heads // cfg.n_kv, cfg.head_dim, [s] * b)
+    t = time_decode(q, kc, vc, clen, flush)
+    nbytes, nops = decode_bound(q, kc, clen)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / CUDA_CORE_OPS_PER_S * 1e3
+    record["decode_timing"] = dict(t, shape=[list(q.shape), list(kc.shape)],
+                                   bytes=nbytes, ops=nops)
+    log(f"phase 6: decode_attention at q {list(q.shape)}, caches "
+        f"{list(kc.shape)} bf16, cache_len {s}: {t['ms_cap50']:.4f} ms at "
+        f"cap 50, {t['ms_cap0']:.4f} ms at cap 0 (plain "
+        f"{t['plain_ms_cap50']:.4f} / {t['plain_ms_cap0']:.4f} ms; SDPA at "
+        f"cap 0 {t['library_ms_cap0']:.4f} ms); bound "
+        f"{max(t_bytes, t_ops):.4f} ms ({nbytes} bytes)")
+    del q, kc, vc, flush
+
+    # one more decode step (position s - 1) under the profiler
+    pos = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+    tok = torch.from_numpy(run.tokens[:, -1:].astype(np.int32)).to(dev)
+    prof = profile_decode_step(
+        lambda: D.decode_step(cfg, run.params, run.cache, tok, pos))
+    record["decode_profile"] = prof
+    log(f"phase 6: profiled one decode step: wall {prof['wall_s'] * 1e3:.2f} "
+        f"ms, device busy {prof['device_busy_ms']:.2f} ms (idle share "
+        f"{prof['idle_share']:.3f}); decode_attention "
+        f"{prof['decode_attn_share']:.3f} of device time, matrix products "
+        f"{prof['matmul_share']:.3f}; top device time:")
+    for row in prof["top"]:
+        log(f"    {row['device_ms']:10.3f} ms {row['calls']:6d}x {row['op']}")
+    return dict(
+        name=DECODE[0], route="cuda", source=DECODE[1], replaces=DECODE[2],
+        launches=launches, max_abs_err=err, ms=t["ms_cap50"],
+        plain_ms=t["plain_ms_cap50"], bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=t["library_ms_cap0"], ms_cap0=t["ms_cap0"],
+        plain_ms_cap0=t["plain_ms_cap0"], library_note=SDPA_NOTE)
+
+
+# ------------------------------------------------------------------ main --
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--scale", type=int, default=22)
+    ap.add_argument("--out", default=None,
+                    help="also write the full record as JSON to this file")
+    args = ap.parse_args()
+    t_start = time.perf_counter()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(REPO, "src"))
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(args.seed)
+    record = dict(seed=args.seed, scale=args.scale)
+
+    # 1. device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    record["card"] = smi
+    record["torch"] = torch.__version__
+    build_s = _build.build_all()
+    record["build_s"] = build_s
+    log(f"phase 1: built {len(_build.SOURCES)} kernel sources in "
+        f"{build_s:.3f} s ({_build.BUILD_DIR})")
+
+    # 2. kernels against their plain versions, random inputs
+    errs = {n: 0 for n in BFS_KERNELS}
+    t0 = time.perf_counter()
+    n_cases, n_hub = phase_kernels(rng, np.random.default_rng([args.seed, 1]),
+                                   dev, errs)
+    log(f"phase 2: {n_cases} random cases per kernel, {n_hub} per hub "
+        f"kernel, bitwise equal ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    n_dec, dec_err, cap_gap = phase_decode_kernel(
+        np.random.default_rng([args.seed, 2]), dev)
+    record["decode_cases"] = dict(calls=n_dec, max_abs_err=dec_err,
+                                  cap_gap=cap_gap)
+    log(f"phase 2: decode_attention: {n_dec} random calls within tolerance "
+        f"(max |kernel - plain| {dec_err:.3g}), exact zeros at cache_len 0, "
+        f"soft cap moves every scaled case by >= {cap_gap:.3g} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # 3. whole-search parity, GPU against CPU
+    t0 = time.perf_counter()
+    phase_parity(PARITY_SCALE, rng)
+    record["parity_s"] = time.perf_counter() - t0
+    log(f"phase 3: scale-{PARITY_SCALE} searches equal on cuda and cpu "
+        f"({record['parity_s']:.1f} s)")
+
+    # 3b. the serving path: smoke configs on the card against the CPU
+    t0 = time.perf_counter()
+    worst = phase_serve_parity(args.seed, dev)
+    log(f"phase 3b: gemma2-9b and yi-9b smoke (fp32) serve alike on cuda "
+        f"and cpu: prefill logits within {worst:.2g}, 9 greedy tokens equal "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # 4, 2b, 5: the BFS paths at full size (their tensors are freed on
+    # return, before the serving path needs the card's memory)
+    entries = bfs_paths(args, rng, dev, record, errs)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6. the serving path at full width
+    entries.append(serve_phase(args, dev, record, dec_err))
     record["total_s"] = time.perf_counter() - t_start
     log(f"total {record['total_s']:.1f} s")
     if args.out:
@@ -686,7 +1027,7 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
 
-    # 6. the kernels line, then the result line
+    # 7. the kernels line, then the result line
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.core import ell as ELL
 from repro_torch.core.graph import Graph
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as K
 
 INT_MAX = int(np.iinfo(np.int32).max)
@@ -314,7 +315,6 @@ def search_state(dg: DeviceGraph, root: int, cfg: BFSConfig,
 def _device_graph(g, device) -> DeviceGraph:
     if isinstance(g, DeviceGraph):
         return g
-    from repro_torch.engine.session import resolve_device
     return DeviceGraph.from_graph(g, resolve_device(device))
 
 

@@ -19,25 +19,10 @@ from __future__ import annotations
 import threading
 from typing import Any, Callable, Optional
 
-import torch
-
 from repro_torch.core import ell as ELL
 from repro_torch.core.bfs import DeviceGraph
 from repro_torch.core.graph import Graph
-
-
-def resolve_device(device) -> torch.device:
-    """`device`, or the GPU when None. Never falls back to the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch runs on a CUDA device by default and none is "
-                "available; pass device='cpu' to run the plain PyTorch "
-                "versions of the kernels on the CPU")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
+from repro_torch.device import resolve_device
 
 
 class GraphSession:

@@ -1,9 +1,11 @@
 """Carry state from the JAX package into the port, as numpy arrays.
 
 Both packages can then compute on identical inputs: the graph, its ELL
-tiles and a mid-search `BatchState` or `BFSState` (this system has no
-weights; the graph and the search state take their place). Only numpy
-crosses over; this module imports nothing of the JAX package.
+tiles and a mid-search `BatchState` or `BFSState` (the BFS system has no
+weights; the graph and the search state take their place), and the LLM
+serving path's weights and KV caches. Only numpy crosses over; this
+module imports nothing of the JAX package, and loads the LLM modules only
+when weights or caches are carried (the BFS side never needs them).
 """
 from __future__ import annotations
 
@@ -58,3 +60,44 @@ def bfs_state_from_arrays(arrays: dict, device) -> BFSState:
     name: the 10 fields of the JAX package's `BFSState.tree_flatten`, in
     that order (`BFS_STATE_FIELDS`), each with its dtype."""
     return _state(BFSState, BFS_STATE_FIELDS, arrays, device)
+
+
+def _as(arr, dtype, device) -> torch.Tensor:
+    """A numpy (or array-like, bf16 included) array as a `dtype` tensor,
+    through float32, which holds every bf16 value exactly."""
+    return torch.from_numpy(np.array(arr, dtype=np.float32)).to(
+        device=device, dtype=dtype)
+
+
+def params_from_arrays(cfg, tree: dict, device=None):
+    """The port's `models.model.Model` from the JAX package's param pytree
+    as nested dicts of numpy arrays: `embed.table`, `final_norm`, and
+    `layers.*` stacked on a leading L axis (as `init_params` builds them),
+    cast to the config's dtype."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as MODEL
+    model = MODEL.Model(cfg, device=device)
+    dt = L.dtype_of(cfg)
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            node, index = tree["layers"], int(parts[1])
+            parts = parts[2:]
+        else:
+            node, index = tree, None
+        for part in parts:
+            node = node[part]
+        arr = node if index is None else np.asarray(node)[index]
+        if tuple(np.shape(arr)) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {np.shape(arr)}, the port "
+                             f"wants {tuple(p.shape)}")
+        p.copy_(_as(arr, dt, device))
+    return model
+
+
+def cache_from_arrays(cfg, tree: dict, device=None) -> dict:
+    """A KV cache dict (`k`/`v`, or `k_local`/`v_local`/`k_global`/
+    `v_global`) from numpy arrays, cast to the config's dtype: the JAX
+    package's prefill or decode cache, to decode on from it."""
+    from repro_torch.models import layers as L
+    return {k: _as(v, L.dtype_of(cfg), device) for k, v in tree.items()}

@@ -10,7 +10,8 @@ write the same temporary file). Delete `build/repro_torch/` to force a
 rebuild.
 
 Nothing here runs at import: the first kernel launch (or `build_all()`)
-builds. Pointer arguments and the stream are `c_void_p`; sizes `c_int64`.
+builds. Pointer arguments and the stream are `c_void_p`; sizes `c_int64`;
+scalars of the arithmetic `c_float`.
 """
 from __future__ import annotations
 
@@ -23,17 +24,21 @@ import threading
 import time
 from pathlib import Path
 
-SOURCES = ("bottomup", "frontier_fused", "hub", "topdown")
+SOURCES = ("bottomup", "decode_attn", "frontier_fused", "hub", "topdown")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_F = ctypes.c_float
 # C entry point and argument types per library (see each source's footer).
 ENTRY_POINTS = {
     "bottomup": ("repro_bottomup_batch",
                  [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _P]),
+    "decode_attn": ("repro_decode_attention",
+                    [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _F, _F,
+                     _I, _I, _P]),
     "frontier_fused": ("repro_frontier_fused_batch",
                        [_P, _P, _P, _P, _P, _I64, _I64, _I, _P]),
     "hub": ("repro_hub_bottomup_batch",

@@ -1,17 +1,18 @@
 """Public wrappers for the kernels: empty tiles, V padding, dispatch.
 
 Mirrors the JAX package's `kernels/ops.py`: the batched wrappers (a lane
-axis, the ELL tile shared across lanes) and the single-lane ones. An empty
-tile (R == 0 or B == 0) returns empty outputs without a launch. The
-tensors' device decides what runs: a CUDA tensor launches the hand-written
-kernel (or raises), a CPU tensor runs the plain PyTorch version. There is
-no fallback from one to the other. A single-lane kernel is a launch of its
+axis, the ELL tile shared across lanes), the single-lane ones, and the
+decode attention of the LLM serving path. An empty tile (R == 0 or
+B == 0) returns empty outputs without a launch. The tensors' device
+decides what runs: a CUDA tensor launches the hand-written kernel (or
+raises), a CPU tensor runs the plain PyTorch version. There is no
+fallback from one to the other. A single-lane kernel is a launch of its
 batched kernel with B = 1, on views of the caller's tensors.
 
 The JAX wrappers pad rows to the Pallas block (and hub tiles to 128
 columns) and slice them back off; the CUDA kernels take any shape, so
 nothing is padded here but V, to whole 32-flag words, for the packing
-kernel.
+kernel (the decode attention's cache length S is not padded either).
 
 `LAUNCHES` counts kernel launches per wrapper; only a launch adds to it.
 
@@ -32,7 +33,7 @@ from repro_torch.kernels import topdown as _td
 LAUNCHES = {"bottomup_batch": 0, "topdown_batch": 0,
             "frontier_fused_batch": 0, "hub_bottomup_batch": 0,
             "bottomup": 0, "topdown": 0, "frontier_fused": 0,
-            "hub_bottomup": 0}
+            "hub_bottomup": 0, "decode_attention": 0}
 
 
 def reset_launches() -> None:
@@ -180,3 +181,28 @@ def frontier_fused(flags, deg):
                                                    pad_words(deg))
     LAUNCHES["frontier_fused"] += 1
     return packed[0], nf[0], mf[0]
+
+
+# ------------------------------------------------------------ LLM serving --
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, logit_cap=0.0):
+    """Flash-decode attention: q [B, K, g, h] against caches [B, S, K, h]
+    with valid lengths `cache_len` int32[B] -> [B, K, g, h] in q's dtype.
+
+    An empty batch or cache returns zeros without a launch (the kernel
+    would write zeros for S = 0 too).
+    """
+    # Lazy: the serving path's kernel stays out of the BFS path's imports,
+    # as the JAX package's quarantine (DC001) keeps it.
+    from repro_torch.kernels import decode_attn as _da
+
+    if q.shape[0] == 0 or k_cache.shape[1] == 0:
+        return torch.zeros_like(q)
+    if not q.is_cuda:
+        return _da.decode_attention_plain(q, k_cache, v_cache, cache_len,
+                                          logit_cap=logit_cap)
+    out = _da.decode_attention_cuda(q, k_cache, v_cache, cache_len,
+                                    logit_cap=logit_cap)
+    LAUNCHES["decode_attention"] += 1
+    return out

@@ -3,8 +3,13 @@
 * an AST scan of `src/repro_torch/**` and `chip_smoke.py` for imports of
   `jax` or `repro`;
 * a subprocess that blocks both on `sys.meta_path`, imports the port and
-  runs CPU searches on every path (unsplit, hub split, stepper, `bfs()`);
-* `Engine(g)` with no device asks for CUDA and raises without it.
+  runs CPU searches on every path (unsplit, hub split, stepper, `bfs()`)
+  and the LLM serving entry point at smoke size;
+* `Engine(g)` and the serving entry point with no device ask for CUDA and
+  raise without it;
+* the BFS path (and the interop module) does not import the LLM serving
+  modules (the port's counterpart of the JAX package's DC001 quarantine),
+  and the serving path does not import the BFS engine.
 """
 import ast
 import os
@@ -66,6 +71,12 @@ bfs(g, 0, device="cpu")
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
                for m in sys.modules)
 print("levels", int(res.num_levels.max()))
+from repro_torch.launch import serve
+toks = serve.main(["--arch", "gemma2-9b", "--smoke", "--device", "cpu",
+                   "--batch", "2", "--prompt-len", "20", "--gen", "3"])
+assert toks.shape == (2, 3), toks.shape
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
+               for m in sys.modules)
 """
 
 
@@ -76,6 +87,7 @@ def test_port_runs_with_jax_and_repro_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("levels")
+    assert "[serve] gemma2-9b-smoke on cpu" in out.stdout
 
 
 def test_engine_without_device_needs_cuda(monkeypatch):
@@ -87,6 +99,50 @@ def test_engine_without_device_needs_cuda(monkeypatch):
         Engine(g, device="cuda")
     res = Engine(g, device="cpu").bfs(int(np.argmax(g.degrees)))
     assert res.parent.shape == (1, g.num_vertices)
+
+
+def test_serve_without_device_needs_cuda(monkeypatch):
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "yi-9b", "--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "yi-9b", "--smoke", "--device", "cuda"])
+
+
+QUARANTINE_RUN = r"""
+import sys
+import repro_torch.core.bfs, repro_torch.engine, repro_torch.kernels.ops
+import repro_torch.interop
+loaded = sorted(m for m in sys.modules if m.startswith((
+    "repro_torch.models", "repro_torch.configs", "repro_torch.train",
+    "repro_torch.launch", "repro_torch.kernels.decode_attn")))
+print(loaded)
+"""
+
+SERVE_QUARANTINE_RUN = r"""
+import sys
+import repro_torch.launch.serve
+print(sorted(m for m in sys.modules if m.startswith((
+    "repro_torch.engine", "repro_torch.core.bfs"))))
+"""
+
+
+def _loaded(script):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO / "src")
+    out = subprocess.run([sys.executable, "-c", script], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return out.stdout.strip()
+
+
+def test_bfs_path_does_not_import_the_serving_modules():
+    assert _loaded(QUARANTINE_RUN) == "[]"
+
+
+def test_serving_path_does_not_import_the_bfs_engine():
+    assert _loaded(SERVE_QUARANTINE_RUN) == "[]"
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
