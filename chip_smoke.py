@@ -12,13 +12,17 @@ a nonzero exit; nothing is caught):
    random inputs (ragged R, V not a multiple of 32, masked lanes, degree-0
    rows, B in {1, 8}, rows of width 32 to 262,144), bitwise; the
    single-lane kernels on lane 0 of the same inputs. The decode attention
-   kernel against its plain version on random (B, S, K, g, h) cases up to
-   gemma2-9b's, fp32 and bf16, cap 0 and 50, cache_len 1, S and random
-   (fp32 within 3e-5; bf16 within one bf16 step, rtol 2^-7, atol 1e-5),
-   and exact zeros at cache_len 0. Then each case with q scaled by 30, so
-   that scores reach the cap: the cap-50 output matches the plain one and
-   is far from the kernel's own cap-0 output (standard normal scores sit
-   where the cap changes them by about 1e-4, below any tolerance).
+   kernel against its plain version on random (B, S, K, g, h) cases:
+   gemma2-9b's, yi-9b's and stablelm-3b's decode shapes, g = 16, rows not
+   16-byte aligned, S not a multiple of the split length, tiny edges; fp32
+   and bf16, cap 0 and 50, cache_len 1 (every split of S but the first
+   empty), S and random (fp32 within 3e-5; bf16 within one bf16 step,
+   rtol 2^-7, atol 1e-5); a second call on the same inputs gives the same
+   bits, and cache_len 0 gives exact zeros. Then each case with q scaled
+   by 30, so that scores reach the cap: the cap-50 output matches the
+   plain one and is far from the kernel's own cap-0 output (standard
+   normal scores sit where the cap changes them by about 1e-4, below any
+   tolerance).
 3. Whole-search parity, `Engine(g, device="cuda")` against
    `Engine(g, device="cpu")` on RMAT scale 16: 8 roots batched and 2 in
    Graph500 mode, heuristics paper and beamer, unsplit and with
@@ -44,9 +48,12 @@ a nonzero exit; nothing is caught):
    just before and read just after (42 x 31); its calls at the first and
    last decode step on layers 0 (local) and 1 (global) are captured and
    held against the plain version (bf16, one step). Then the kernel's time at
-   that shape (cap 50 and cap 0), its plain version's, one
+   that shape (cap 50 and cap 0) with its split count, achieved GB/s and
+   share of the bound, its plain version's time, one
    `F.scaled_dot_product_attention` call at cap 0 as the library
-   yardstick, and a profile of one decode step.
+   yardstick, and the host's cost of a launcher call; the kernel and SDPA
+   at yi-9b's and stablelm-3b's decode shapes too; a profile of one
+   decode step.
 7. One JSON line listing the kernels, then the result line.
 
 `--out FILE` also writes the full record (timings, shapes, profiles) as
@@ -69,6 +76,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 PARITY_SCALE = 16              # GPU-vs-CPU whole-search parity graph
 TIMING_REPS = 20               # CUDA-event samples per timed kernel
+SLEEP_CYCLES = 200_000_000     # ~0.1 s at 1.98 GHz: the host queues ahead
 # name: (CUDA source, the TPU kernel's `pl.pallas_call` line)
 BFS_KERNELS = {
     "bottomup_batch": ("src/repro_torch/kernels/csrc/bottomup.cu",
@@ -90,9 +98,13 @@ BFS_KERNELS = {
 }
 DECODE = ("decode_attention", "src/repro_torch/kernels/csrc/decode_attn.cu",
           "src/repro/kernels/decode_attn.py:90")
-# (B, S, K, g, h): the JAX kernel tests' sweep, tiny edges, gemma2-9b's.
+# (B, S, K, g, h): the JAX kernel tests' sweep, tiny edges, the decode
+# shapes of gemma2-9b, yi-9b and stablelm-3b (context 4,232, not a multiple
+# of their split lengths), g = 16 at S = 333 (not a multiple of the 32-
+# position split), bf16 rows of 40 bytes (no 16-byte copies).
 DECODE_CASES = [(2, 1024, 4, 2, 64), (3, 700, 2, 5, 32), (1, 64, 1, 1, 16),
-                (1, 1, 1, 1, 8), (4, 4232, 8, 2, 256)]
+                (1, 1, 1, 1, 8), (4, 4232, 8, 2, 256), (4, 4232, 4, 8, 128),
+                (2, 4232, 32, 1, 80), (1, 333, 2, 16, 256), (3, 77, 2, 3, 20)]
 # (rtol, atol) of kernel against plain: fp32 sums in another order; bf16
 # one step of the value (both round the same fp32 result, up to its order)
 DECODE_TOL = {"float32": (3e-5, 3e-5), "bfloat16": (2 ** -7, 1e-5)}
@@ -102,6 +114,7 @@ SDPA_TOL = 1e-2
 # The serve run: gemma2-9b at full width, cut from configs/shapes.py's
 # decode_32k (B = 128, S = 32,768) to one card.
 SERVE = dict(arch="gemma2-9b", batch=4, prompt_len=4200, gen=32)
+OTHER_DECODE = ("yi-9b", "stablelm-3b")   # decode kernel timed at their shape
 SDPA_NOTE = ("F.scaled_dot_product_attention (enable_gqa, boolean mask from "
              "cache_len) computes the cap-0 function; no single PyTorch call "
              "computes the soft-capped one the model runs (cap 50)")
@@ -375,20 +388,24 @@ def pick_calls(calls):
 # --------------------------------------------------------------- timing --
 
 def time_ms(fn, reps, flush):
+    """Median device ms of `fn` between two CUDA events, over `reps` runs,
+    each after a read of `flush` (larger than the L2, so inputs come from
+    device memory; a read leaves no dirty lines for `fn` to write back).
+    All runs are queued behind a device-side sleep, so the host's time to
+    launch `fn` is not in the events' interval."""
     import torch
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for s, e in events:
+        flush.amax()
         s.record()
         fn()
         e.record()
-        torch.cuda.synchronize()
-        times.append(s.elapsed_time(e))
-    return float(np.median(times))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
 def profile_search(search, top=10):
@@ -553,11 +570,11 @@ def decode_vs_plain(args, cap, out=None):
 
 def phase_decode_kernel(rng, dev):
     """Every case in fp32 and bf16, cap 0 and 50, cache_len all 1, all S
-    and random; then cache_len 0 must give exact zeros; then (S > 1) q
-    scaled by CAP_SCALE at cache_len S: the cap-50 output matches the
-    plain one and differs from the kernel's cap-0 output by more than
-    1000 x the fp32 tolerance. Returns (calls, max |kernel - plain|, the
-    least cap-50 vs cap-0 gap)."""
+    and random, each call made twice and equal bit for bit; then cache_len
+    0 must give exact zeros; then (S > 1) q scaled by CAP_SCALE at
+    cache_len S: the cap-50 output matches the plain one and differs from
+    the kernel's cap-0 output by more than 1000 x the fp32 tolerance.
+    Returns (calls, max |kernel - plain|, the least cap-50 vs cap-0 gap)."""
     import torch
     from repro_torch.kernels import ops
     err, n, gap = 0.0, 0, float("inf")
@@ -566,8 +583,12 @@ def phase_decode_kernel(rng, dev):
             for clen in ([1] * b, [s] * b, rng.integers(1, s + 1, b)):
                 args = decode_inputs(rng, dev, dtype, b, s, k, g, h, clen)
                 for cap in (0.0, 50.0):
-                    err = max(err, decode_vs_plain(args, cap))
-                    n += 1
+                    out = ops.decode_attention(*args, logit_cap=cap)
+                    again = ops.decode_attention(*args, logit_cap=cap)
+                    assert torch.equal(out, again), \
+                        f"{(b, s, k, g, h)} {dtype}: two calls differ"
+                    err = max(err, decode_vs_plain(args, cap, out))
+                    n += 2
             args = decode_inputs(rng, dev, dtype, b, s, k, g, h, [0] * b)
             zero = ops.decode_attention(*args, logit_cap=50.0)
             assert not bool(zero.any()), "cache_len 0: output is not zeros"
@@ -652,9 +673,11 @@ def decode_bound(q, kc, clen):
     return nbytes, 4 * n * kk * g * h
 
 
-def time_decode(q, kc, vc, clen, flush):
-    """Kernel ms at cap 50 and cap 0, plain ms at both, SDPA ms at cap 0
-    (the library call, checked against the plain cap-0 output)."""
+def time_decode(q, kc, vc, clen, flush, plain=True):
+    """Kernel ms at cap 50 and cap 0, plain ms at both (with `plain`), SDPA
+    ms at cap 0 (the library call, checked against the plain cap-0
+    output), and the host's microseconds per launcher call (200 calls
+    queued back to back, no sync between)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attn
@@ -666,10 +689,16 @@ def time_decode(q, kc, vc, clen, flush):
             lambda: decode_attn.decode_attention_cuda(q, kc, vc, clen,
                                                       logit_cap=cap),
             TIMING_REPS, flush)
-        out[f"plain_ms_cap{cap:g}"] = time_ms(
-            lambda: decode_attn.decode_attention_plain(q, kc, vc, clen,
-                                                       logit_cap=cap),
-            TIMING_REPS, flush)
+        if plain:
+            out[f"plain_ms_cap{cap:g}"] = time_ms(
+                lambda: decode_attn.decode_attention_plain(
+                    q, kc, vc, clen, logit_cap=cap), TIMING_REPS, flush)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        decode_attn.decode_attention_cuda(q, kc, vc, clen, logit_cap=50.0)
+    out["host_us_per_call"] = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
     qs = q.reshape(b, kk * g, 1, h)
     ks, vs = kc.transpose(1, 2), vc.transpose(1, 2)       # [B, K, S, h]
     mask = (torch.arange(s, device=q.device)[None] < clen[:, None])[
@@ -858,7 +887,7 @@ def serve_phase(args, dev, record, dec_err):
     decode kernel."""
     import torch
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import decode_attn, ops
     from repro_torch.launch import serve
     from repro_torch.models import decode as D
     cfg = get_config(SERVE["arch"])
@@ -913,15 +942,47 @@ def serve_phase(args, dev, record, dec_err):
     nbytes, nops = decode_bound(q, kc, clen)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / CUDA_CORE_OPS_PER_S * 1e3
+    plan = dict(decode_attn.LAST_PLAN)     # of the launches just timed
+    nsplit, split_len = plan["nsplit"], plan["split_len"]
+    for cap in ("50", "0"):
+        t[f"gb_per_s_cap{cap}"] = nbytes / t[f"ms_cap{cap}"] / 1e6
+        t[f"bound_share_cap{cap}"] = max(t_bytes, t_ops) / t[f"ms_cap{cap}"]
+    t.update(plan)
     record["decode_timing"] = dict(t, shape=[list(q.shape), list(kc.shape)],
                                    bytes=nbytes, ops=nops)
     log(f"phase 6: decode_attention at q {list(q.shape)}, caches "
-        f"{list(kc.shape)} bf16, cache_len {s}: {t['ms_cap50']:.4f} ms at "
-        f"cap 50, {t['ms_cap0']:.4f} ms at cap 0 (plain "
-        f"{t['plain_ms_cap50']:.4f} / {t['plain_ms_cap0']:.4f} ms; SDPA at "
-        f"cap 0 {t['library_ms_cap0']:.4f} ms); bound "
-        f"{max(t_bytes, t_ops):.4f} ms ({nbytes} bytes)")
-    del q, kc, vc, flush
+        f"{list(kc.shape)} bf16, cache_len {s}, {nsplit} splits of "
+        f"{split_len} ({t['blocks']} blocks, {t['resident']} per SM "
+        f"resident): {t['ms_cap50']:.4f} ms at "
+        f"cap 50 ({t['gb_per_s_cap50']:.0f} GB/s, "
+        f"{t['bound_share_cap50']:.3f} of the bound), {t['ms_cap0']:.4f} ms "
+        f"at cap 0 ({t['gb_per_s_cap0']:.0f} GB/s, "
+        f"{t['bound_share_cap0']:.3f}); plain {t['plain_ms_cap50']:.4f} / "
+        f"{t['plain_ms_cap0']:.4f} ms; SDPA at cap 0 "
+        f"{t['library_ms_cap0']:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms "
+        f"({nbytes} bytes); host {t['host_us_per_call']:.1f} us a call")
+    del q, kc, vc
+
+    # the same at the decode shapes of the other dense configs the port
+    # serves (not driven end to end here)
+    record["decode_timing_other"] = {}
+    for arch in OTHER_DECODE:
+        oc = get_config(arch)
+        q, kc, vc, clen = decode_inputs(
+            np.random.default_rng([args.seed, 4]), dev, torch.bfloat16, b, s,
+            oc.n_kv, oc.n_heads // oc.n_kv, oc.head_dim, [s] * b)
+        o = time_decode(q, kc, vc, clen, flush, plain=False)
+        nb, _ = decode_bound(q, kc, clen)
+        o.update(decode_attn.LAST_PLAN, shape=[list(q.shape),
+                                               list(kc.shape)],
+                 bytes=nb, bound_ms=nb / HBM_BYTES_PER_S * 1e3)
+        record["decode_timing_other"][arch] = o
+        log(f"phase 6: decode_attention, {arch}'s shape q {list(q.shape)}: "
+            f"{o['ms_cap50']:.4f} ms at cap 50, {o['ms_cap0']:.4f} at cap 0 "
+            f"({o['nsplit']} splits, {o['resident']} per SM resident), SDPA "
+            f"{o['library_ms_cap0']:.4f} ms, bound {o['bound_ms']:.4f} ms")
+        del q, kc, vc
+    del flush
 
     # one more decode step (position s - 1) under the profiler
     pos = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
@@ -942,7 +1003,9 @@ def serve_phase(args, dev, record, dec_err):
         plain_ms=t["plain_ms_cap50"], bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=t["library_ms_cap0"], ms_cap0=t["ms_cap0"],
-        plain_ms_cap0=t["plain_ms_cap0"], library_note=SDPA_NOTE)
+        plain_ms_cap0=t["plain_ms_cap0"], nsplit=nsplit,
+        gb_per_s=t["gb_per_s_cap50"], bound_share=t["bound_share_cap50"],
+        library_note=SDPA_NOTE)
 
 
 # ------------------------------------------------------------------ main --

@@ -32,13 +32,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _F = ctypes.c_float
-# C entry point and argument types per library (see each source's footer).
+# C entry point and argument types, by library unless LIBRARY says
+# otherwise (see each source's footer).
 ENTRY_POINTS = {
     "bottomup": ("repro_bottomup_batch",
                  [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _P]),
     "decode_attn": ("repro_decode_attention",
-                    [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _F, _F,
-                     _I, _I, _P]),
+                    [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                     _I64, _I64, _F, _F, _I, _I, _P]),
+    "decode_attn_resident": ("repro_decode_attention_resident",
+                             [_I64, _I64, _I, _P, _I]),
     "frontier_fused": ("repro_frontier_fused_batch",
                        [_P, _P, _P, _P, _P, _I64, _I64, _I, _P]),
     "hub": ("repro_hub_bottomup_batch",
@@ -46,6 +49,7 @@ ENTRY_POINTS = {
     "topdown": ("repro_topdown_batch",
                 [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _P]),
 }
+LIBRARY = {"decode_attn_resident": "decode_attn"}
 
 _lock = threading.RLock()      # build_all and first loads
 _functions: dict = {}
@@ -103,7 +107,7 @@ def _build_missing(names) -> float:
 
 
 def function(name: str):
-    """The C entry point of library `name`, built and loaded on first use."""
+    """C entry point `name`, its library built and loaded on first use."""
     fn = _functions.get(name)
     if fn is None:
         with _lock:
@@ -111,7 +115,8 @@ def function(name: str):
             if fn is None:
                 build_all()
                 symbol, argtypes = ENTRY_POINTS[name]
-                fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+                lib = library_path(LIBRARY.get(name, name))
+                fn = getattr(ctypes.CDLL(str(lib)), symbol)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
                 _functions[name] = fn

@@ -16,6 +16,8 @@ device.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
@@ -23,13 +25,71 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+MAX_GROUP = 16       # query heads per kv head in one block
+# `kTile` and `kMaxSplits` in the source, which refuses a plan past either
+TILE = 32            # positions per tile
+MAX_SPLITS = 64
+
+# Per (device, stream): an int32 buffer of per-(b, kv head) counters that
+# the kernel leaves at zero, so it is zeroed once, not on every call (a
+# zeroing launch a call would add to a decode step that the host's launches
+# already bound).
+_counters: dict = {}
+# Per (device, dtype, g, h): the kernel's blocks one SM holds at once.
+_resident: dict = {}
+# The plan of the last launch (nsplit, split_len, blocks, resident).
+LAST_PLAN: dict = {}
+
+
+def split_plan(b: int, kk: int, s: int, sms: int,
+               resident: int) -> tuple[int, int]:
+    """(nsplit, split_len): S cut into `nsplit` ranges of `split_len`
+    positions, a multiple of TILE, so that the B * K * nsplit blocks come as
+    close as they can to `resident` per SM (what one SM holds at once)
+    without passing it: every block resident from the start, and no second
+    round of blocks left to run on a few SMs at the end. From the shapes
+    alone (not cache_len), so the launch shape is the same for every call
+    at one shape."""
+    tiles = max(1, -(-s // TILE))
+    want = max(1, resident * sms // max(1, b * kk))
+    per = -(-tiles // min(want, tiles, MAX_SPLITS))
+    return -(-tiles // per), per * TILE
+
+
+def resident_blocks(device: torch.device, dtype: torch.dtype, g: int,
+                    h: int) -> int:
+    """Blocks of the kernel one SM of `device` holds at once for this
+    (dtype, g, h), from the CUDA occupancy calculator (registers and shared
+    memory of the instance the launch picks); asked once per key."""
+    key = (device.index, dtype, g, h)
+    n = _resident.get(key)
+    if n is None:
+        out = ctypes.c_int(0)
+        err = _build.function("decode_attn_resident")(
+            g, h, DTYPE_CODES[dtype], ctypes.addressof(out), device.index)
+        if err != 0 or out.value < 1:
+            raise RuntimeError(f"repro_decode_attention_resident: cudaError_t "
+                               f"{err}, {out.value} blocks per SM for "
+                               f"g {g}, h {h}, {dtype}")
+        n = _resident[key] = out.value
+    return n
+
+
+def _counter_buffer(device: torch.device, stream: int, n: int):
+    buf = _counters.get((device.index, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _counters[(device.index, stream)] = buf
+    return buf
 
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, cache_len: torch.Tensor, *,
                           logit_cap: float = 0.0) -> torch.Tensor:
     """Launch `csrc/decode_attn.cu` on the current stream: out [B, K, g, h]
-    in q's dtype (float32 or bfloat16, the caches' too), 1 <= h <= 256."""
+    in q's dtype (float32 or bfloat16, the caches' too), 1 <= h <= 256,
+    g <= 16. S is split across blocks by `split_plan` (recorded in
+    LAST_PLAN); the splits' fp32 partials go to scratch allocated here."""
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"decode_attention: q is {q.dtype}; the kernel "
                          f"takes {sorted(map(str, DTYPE_CODES))}")
@@ -41,18 +101,28 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     s = k_cache.shape[1]
     if (tuple(k_cache.shape) != (b, s, kk, h) or v_cache.shape != k_cache.shape
             or cache_len.shape[0] != b or not 1 <= h <= MAX_HEAD_DIM
-            or b > 65535):
+            or not 1 <= g <= MAX_GROUP or b > 65535 or kk > 65535):
         raise ValueError(
             f"decode_attention: q {tuple(q.shape)}, caches "
             f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}, cache_len "
-            f"{tuple(cache_len.shape)} do not fit (B <= 65535, "
-            f"1 <= h <= {MAX_HEAD_DIM})")
+            f"{tuple(cache_len.shape)} do not fit (B, K <= 65535, "
+            f"1 <= g <= {MAX_GROUP}, 1 <= h <= {MAX_HEAD_DIM})")
+    resident = resident_blocks(q.device, q.dtype, g, h)
+    nsplit, split_len = split_plan(
+        b, kk, s, torch.cuda.get_device_properties(q.device)
+        .multi_processor_count, resident)
+    LAST_PLAN.update(nsplit=nsplit, split_len=split_len,
+                     blocks=b * kk * nsplit, resident=resident)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty_like(q)
+    scratch = torch.empty(b * kk * nsplit * g * (h + 2), dtype=torch.float32,
+                          device=q.device)
+    counters = _counter_buffer(q.device, stream, b * kk)
     _build.launch("decode_attn", q.data_ptr(), k_cache.data_ptr(),
                   v_cache.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
-                  b, s, kk, g, h, h ** -0.5, float(logit_cap),
-                  DTYPE_CODES[q.dtype], device=q.device.index,
-                  stream=torch.cuda.current_stream(q.device).cuda_stream)
+                  scratch.data_ptr(), counters.data_ptr(), b, s, kk, g, h,
+                  nsplit, split_len, h ** -0.5, float(logit_cap),
+                  DTYPE_CODES[q.dtype], device=q.device.index, stream=stream)
     return out
 
 

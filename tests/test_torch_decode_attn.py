@@ -15,7 +15,8 @@ differs from s by about 1e-4: the soft cap is only seen with q scaled by
 outputs differ by far more than the tolerance.
 
 The CUDA kernel is checked against the plain version on the card (the
-`cuda`-marked test below, and `chip_smoke.py`).
+`cuda`-marked test below, and `chip_smoke.py`); its split of S across
+blocks (`split_plan`) is pure Python and is checked here.
 """
 import numpy as np
 import pytest
@@ -185,32 +186,102 @@ def test_launcher_refuses_cpu_tensors_and_plain_counts_nothing():
     assert ops.LAUNCHES["decode_attention"] == before
 
 
+H100_SMS = 132
+# Blocks of the kernel one H100 SM holds at once (bf16), as the launcher's
+# `resident_blocks` reads them from the occupancy calculator there
+# (`chip_smoke.py` phase 6 prints them): gemma2-9b (g 2, h 256), yi-9b
+# (g 8, h 128), stablelm-3b (g 1, h 80).
+H100_RESIDENT = {(8, 2, 256): 2, (4, 8, 128): 2, (32, 1, 80): 4}
+# (B, K, S): gemma2-9b's, yi-9b's and stablelm-3b's serve shapes, then
+# small and ragged ones.
+PLAN_SHAPES = [(4, 8, 4232), (4, 4, 4232), (2, 32, 4232), (1, 1, 1),
+               (4, 8, 1), (2, 2, 1000), (1, 2, 333), (3, 2, 700),
+               (128, 8, 32768), (1, 1, 100000), (65535, 1, 64)]
+
+
+@pytest.mark.parametrize("b,k,s", PLAN_SHAPES)
+def test_split_plan_covers_s_in_whole_tiles(b, k, s):
+    """For any number of blocks an SM holds: every position in exactly one
+    split, 1 <= nsplit <= ceil(S / tile) and <= the kernel's limit,
+    split_len a whole number of tiles, the splits cover S and none of them
+    is empty by shape; the same shapes give the same plan (the launch shape
+    depends on nothing else); with enough work, no more blocks than the
+    SMs hold at once, so none waits for a second round."""
+    tiles = -(-s // tda.TILE)
+    for resident in (1, 2, 3, 8):
+        nsplit, split_len = tda.split_plan(b, k, s, H100_SMS, resident)
+        assert 1 <= nsplit <= min(tiles, tda.MAX_SPLITS)
+        assert split_len % tda.TILE == 0 and split_len >= tda.TILE
+        assert nsplit * split_len >= s > (nsplit - 1) * split_len
+        assert tda.split_plan(b, k, s, H100_SMS, resident) == (nsplit,
+                                                                split_len)
+        if b * k * tiles >= resident * H100_SMS:
+            assert b * k * nsplit <= max(b * k, resident * H100_SMS)
+
+
+def test_split_plan_fills_the_card_at_the_serve_shapes():
+    """gemma2-9b's decode (B 4, K 8, S 4,232, two blocks per SM): 8 splits
+    of 544 positions, 256 blocks, nearly two on each of the 132 SMs;
+    yi-9b's and stablelm-3b's shapes fill what their SMs hold the same way
+    (over three quarters of it, all in one round). S = 4,232 is not a
+    multiple of the split length, so the last split is short."""
+    assert tda.split_plan(4, 8, 4232, H100_SMS, 2) == (8, 544)
+    for (k, g, h), resident in H100_RESIDENT.items():
+        b = 2 if k == 32 else 4
+        nsplit, split_len = tda.split_plan(b, k, 4232, H100_SMS, resident)
+        blocks = b * k * nsplit
+        assert 0.75 * resident * H100_SMS < blocks <= resident * H100_SMS
+        assert 4232 % split_len != 0
+    # fewer SMs, or fewer blocks on each, take fewer splits
+    assert tda.split_plan(4, 8, 4232, 66, 2)[0] < 8
+    assert tda.split_plan(4, 8, 4232, H100_SMS, 1)[0] < 8
+
+
+# (B, S, K, g, h, cap) the kernel sweep adds on the card: yi-9b's and
+# stablelm-3b's decode shapes, g = 16 (the most one block takes), rows of
+# 40 bytes (bf16; no 16-byte copies), S not a multiple of the split length.
+CUDA_EXTRA = [(1, 1, 1, 1, 8, 0.0), (2, 100, 3, 9, 100, 50.0),
+              (4, 4232, 4, 8, 128, 0.0), (2, 4232, 32, 1, 80, 50.0),
+              (1, 333, 2, 16, 256, 50.0), (3, 77, 2, 3, 20, 0.0)]
+
+
 @pytest.mark.cuda
 def test_decode_attention_kernel_matches_plain_on_cuda():
     """On a card: the kernel through `ops` against the plain version on the
-    same CUDA tensors, fp32 and bf16, capped and not, cache_len 0 to S;
-    then with q scaled to reach the cap, where the kernel's cap-50 output
-    matches the plain one and is far from its cap-0 output."""
+    same CUDA tensors, fp32 and bf16, capped and not, for three sets of
+    cache_len: the first row 0 and the rest random in 1..S; every row 1
+    (every split but the first empty); every row random in 2..S-1 (a
+    length that ends inside a split). A second call on the same inputs
+    gives the same bits. Then with q scaled to reach the cap, where the
+    kernel's cap-50 output matches the plain one and is far from its cap-0
+    output. Last, caches that start 2 bytes past a 16-byte boundary."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (run on the GPU host)")
     dev = torch.device("cuda")
     tols = {torch.float32: (F32_TOL, F32_TOL),
             torch.bfloat16: (BF16_RTOL, BF16_ATOL)}
-    for b, s, k, g, h, cap in SWEEP + [(1, 1, 1, 1, 8, 0.0),
-                                       (2, 100, 3, 9, 100, 50.0)]:
+    for b, s, k, g, h, cap in SWEEP + CUDA_EXTRA:
         q, kc, vc, clen = _inputs(s + h, b, s, k, g, h)
         clen[0] = 0
+        lens_sets = [clen, np.ones(b, np.int32)]
+        if s > 2:
+            lens_sets.append(np.random.default_rng(s + h).integers(
+                2, s, b).astype(np.int32))
         for dtype, (rtol, atol) in tols.items():
             args = [torch.from_numpy(x).to(dev, dtype) for x in (q, kc, vc)]
-            lens = torch.from_numpy(clen).to(dev)
-            n = ops.LAUNCHES["decode_attention"]
-            got = ops.decode_attention(*args, lens, logit_cap=cap)
-            want = tda.decode_attention_plain(*args, lens, logit_cap=cap)
-            torch.cuda.synchronize()
-            assert ops.LAUNCHES["decode_attention"] == n + 1
-            assert got.dtype == dtype and not got[0].any()
-            torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                                       atol=atol)
+            for lens_np in lens_sets:
+                lens = torch.from_numpy(lens_np).to(dev)
+                n = ops.LAUNCHES["decode_attention"]
+                got = ops.decode_attention(*args, lens, logit_cap=cap)
+                want = tda.decode_attention_plain(*args, lens, logit_cap=cap)
+                torch.cuda.synchronize()
+                assert ops.LAUNCHES["decode_attention"] == n + 1
+                assert got.dtype == dtype
+                assert lens_np[0] > 0 or not got[0].any()
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=rtol, atol=atol)
+                assert torch.equal(ops.decode_attention(*args, lens,
+                                                        logit_cap=cap), got)
             if s > 1:
                 args[0] = args[0] * CAP_SCALE
                 lens.fill_(s)
@@ -221,3 +292,15 @@ def test_decode_attention_kernel_matches_plain_on_cuda():
                 uncapped = ops.decode_attention(*args, lens)
                 assert float((got.float() - uncapped.float()).abs().max()) \
                     > 1000 * F32_TOL
+    b, s, k, g, h = 2, 300, 2, 2, 64
+    q, kc, vc, _ = _inputs(7, b, s, k, g, h)
+    buf = torch.zeros(2 * kc.size + 2, dtype=torch.bfloat16, device=dev)
+    kt = buf[1:1 + kc.size].view(kc.shape)
+    vt = buf[1 + kc.size:1 + 2 * kc.size].view(vc.shape)
+    kt.copy_(torch.from_numpy(kc)), vt.copy_(torch.from_numpy(vc))
+    args = (torch.from_numpy(q).to(dev, torch.bfloat16), kt, vt,
+            torch.tensor([s, 123], dtype=torch.int32, device=dev))
+    torch.testing.assert_close(
+        ops.decode_attention(*args, logit_cap=50.0).float(),
+        tda.decode_attention_plain(*args, logit_cap=50.0).float(),
+        rtol=BF16_RTOL, atol=BF16_ATOL)
