@@ -11,7 +11,9 @@ a nonzero exit; nothing is caught):
 2. Each of the eight BFS kernels against its plain PyTorch version on
    random inputs (ragged R, V not a multiple of 32, masked lanes, degree-0
    rows, B in {1, 8}, rows of width 32 to 262,144), bitwise; the
-   single-lane kernels on lane 0 of the same inputs. The decode attention
+   single-lane kernels on lane 0 of the same inputs; the two pull kernels
+   also on cases with RMAT-like skew (most rows of degree 1-4, a few
+   whose first hit lies deep, B in {1, 8, 16}). The decode attention
    kernel against its plain version on random (B, S, K, g, h) cases:
    gemma2-9b's, yi-9b's and stablelm-3b's decode shapes, g = 16, rows not
    16-byte aligned, S not a multiple of the split length, tiny edges; fp32
@@ -40,7 +42,8 @@ a nonzero exit; nothing is caught):
    rows (2b).
 5. BFS kernel times at those shapes: CUDA events (median), the plain
    version's time and the bound (bytes this call needs / 3.35 TB/s); a
-   profile of one search on each path.
+   profile of one search on each path, with the summed device time and
+   calls of each of the port's kernels in it.
 6. The serving path at gemma2-9b's full width (42 layers, bf16, random
    weights from --seed), after the BFS phases' tensors are freed:
    `launch.serve.serve` (what `main` runs) with batch 4, a 4,200-token
@@ -85,7 +88,7 @@ BFS_KERNELS = {
                       "src/repro/kernels/topdown.py:108"),
     "frontier_fused_batch": ("src/repro_torch/kernels/csrc/frontier_fused.cu",
                              "src/repro/kernels/frontier_fused.py:124"),
-    "hub_bottomup_batch": ("src/repro_torch/kernels/csrc/hub.cu",
+    "hub_bottomup_batch": ("src/repro_torch/kernels/csrc/bottomup.cu",
                            "src/repro/kernels/hub.py:140"),
     "bottomup": ("src/repro_torch/kernels/csrc/bottomup.cu",
                  "src/repro/kernels/bottomup.py:92"),
@@ -93,7 +96,7 @@ BFS_KERNELS = {
                 "src/repro/kernels/topdown.py:45"),
     "frontier_fused": ("src/repro_torch/kernels/csrc/frontier_fused.cu",
                        "src/repro/kernels/frontier_fused.py:61"),
-    "hub_bottomup": ("src/repro_torch/kernels/csrc/hub.cu",
+    "hub_bottomup": ("src/repro_torch/kernels/csrc/bottomup.cu",
                      "src/repro/kernels/hub.py:77"),
 }
 DECODE = ("decode_attention", "src/repro_torch/kernels/csrc/decode_attn.cu",
@@ -204,10 +207,43 @@ HUB_CASES = [(8, 3000, 256, 1000003, 2, 0.002), (1, 700, 1024, 500001, 0,
              (1, 4, 262144, 4194304, 0, 0.000002)]
 
 
+def make_skewed_case(rng, dev, b, r, w, v, deep):
+    """A pull case with RMAT-like skew: most rows of degree 1-4, a few up
+    to W; a frontier of density 0.02 that never holds vertex 0; and a
+    fraction `deep` of the rows whose first hit, in every lane, lies at a
+    random slot past 3/4 of the degree (the slots before it hold -1, which
+    clips to vertex 0). Returns (deg, nbrs, flags) on `dev`."""
+    import torch
+    small = rng.integers(1, 5, (b, r))
+    big = rng.integers(1, w + 1, (b, r))
+    deg = np.where(rng.random((b, r)) < 0.9, small, big).astype(np.int32)
+    deg[rng.random((b, r)) < 0.2] = 0                  # settled rows
+    nbrs = rng.integers(1, v, (r, w)).astype(np.int32)
+    flags = (rng.random((b, v)) < 0.02).astype(np.uint8)
+    flags[:, 0] = 0
+    for i in np.flatnonzero(rng.random(r) < deep):
+        d = max(1, int(deg[:, i].max()))
+        s = int(rng.integers(d * 3 // 4, d))
+        deg[:, i] = np.where(deg[:, i] > 0, d, 0)
+        nbrs[i, :s] = -1
+        flags[:, nbrs[i, s]] = 1
+    return tuple(torch.from_numpy(x).to(dev) for x in (deg, nbrs, flags))
+
+
+# (B, R, W, V, deep-row fraction): the base bucket's width with 16 and 1
+# lanes, a hub width, and wide rows whose first hits lie past the hub
+# kernel's warp phase.
+SKEWED_CASES = [(16, 300001, 32, 4194304, 0.001), (8, 200003, 32, 1000003,
+                                                   0.01),
+                (1, 300001, 32, 4194304, 0.001), (16, 5000, 256, 4194304, 0.05),
+                (8, 300, 4096, 4194304, 0.2), (16, 40, 65536, 4194304, 0.5)]
+
+
 def phase_kernels(rng, hub_rng, dev, errs):
     """Every kernel on random cases; the single-lane ones on lane 0. The
-    hub cases draw from `hub_rng`, so `rng` reaches the later phases (and
-    picks the scale-22 roots) as it did before they were added."""
+    hub and skewed cases draw from `hub_rng`, so `rng` reaches the later
+    phases (and picks the scale-22 roots) as it did before they were
+    added."""
     import torch
     n = 0
     for spec in CASES + HUB_CASES:
@@ -225,6 +261,11 @@ def phase_kernels(rng, hub_rng, dev, errs):
         kernel_vs_plain("topdown", (d0, nbrs, f0), errs)
         kernel_vs_plain("frontier_fused", (f0, vdeg), errs)
         n += 1
+    for spec in SKEWED_CASES:
+        deg, nbrs, flags = make_skewed_case(hub_rng, dev, *spec)
+        for name in ("bottomup", "hub_bottomup"):
+            kernel_vs_plain(name + "_batch", (deg, nbrs, flags), errs)
+            kernel_vs_plain(name, (deg[0], nbrs, flags[0]), errs)
     # nf/mf near the int32 limit: every flag set, degrees summing to
     # 2^31 - 1 - 5 per lane.
     v = 4096
@@ -235,7 +276,7 @@ def phase_kernels(rng, hub_rng, dev, errs):
     kernel_vs_plain("frontier_fused_batch", (ones, vdeg), errs)
     kernel_vs_plain("frontier_fused", (ones[0], vdeg), errs)
     torch.cuda.synchronize()
-    return n + 1, len(CASES) + len(HUB_CASES)
+    return n + 1
 
 
 # ---------------------------------------------------------- whole searches --
@@ -408,12 +449,52 @@ def time_ms(fn, reps, flush):
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
+# The port's kernels in a profile, by source: the first symbol (a part of
+# the kernel's name) that a device op's name contains. Older checkouts'
+# kernels match too (`scripts/time_pull.py` profiles them): their hub.cu
+# kernel's name also contains "bottomup_", so it goes first.
+KERNEL_SYMBOLS = (("hub.cu", "::hub_"), ("bottomup.cu", "::bottomup_"),
+                  ("bottomup.cu", "::pull_kernel"),
+                  ("bottomup.cu", "::pack_kernel"),
+                  ("topdown.cu", "::topdown_"),
+                  ("frontier_fused.cu", "::frontier_fused_"),
+                  ("decode_attn.cu", "::decode_attn_"))
+
+
+def kernel_sums(rows):
+    """{source: {device_ms, calls}} of the port's kernels among profile
+    rows (op, device ms, calls)."""
+    sums = {}
+    for op, ms, n in rows:
+        for source, symbol in KERNEL_SYMBOLS:
+            if symbol in op:
+                acc = sums.setdefault(source, dict(device_ms=0.0, calls=0))
+                acc["device_ms"] += ms
+                acc["calls"] += n
+                break
+    return sums
+
+
 def profile_search(search, top=10):
     """One more search (`search()`) under torch.profiler: device time by op
-    (self time, ms) and the device's busy share of the search's wall time.
-    Not part of the paths' launch counts (read before this runs)."""
+    (self time, ms), the summed device time and calls of each of the port's
+    kernels by source (`kernel_sums`) and by `ops` wrapper (each wrapper
+    call runs in a `record_function` range named after it, and a range's
+    device time is that of the kernels launched in it), and the device's
+    busy share of the search's wall time. Not part of the paths' launch
+    counts (read before this runs)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels import ops
+    saved = {n: getattr(ops, n) for n in BFS_KERNELS}
+
+    def labelled(name):
+        def fn(*args, **kw):
+            with record_function(f"ops.{name}"):
+                return saved[name](*args, **kw)
+        return fn
+    for n in BFS_KERNELS:
+        setattr(ops, n, labelled(n))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -421,8 +502,16 @@ def profile_search(search, top=10):
         search()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
+    for n, f in saved.items():
+        setattr(ops, n, f)
+    rows, wrappers = [], {}
     for evt in prof.key_averages():
+        if evt.key.startswith("ops."):   # a range, not a device op
+            wrappers[evt.key[4:]] = dict(
+                device_ms=getattr(evt, "device_time_total",
+                                  getattr(evt, "cuda_time_total", 0)) / 1e3,
+                calls=evt.count)
+            continue
         if "CUDA" not in str(getattr(evt, "device_type", "")):
             continue                      # host ops; kernels are listed alone
         dev_us = getattr(evt, "self_device_time_total",
@@ -433,6 +522,7 @@ def profile_search(search, top=10):
     busy_ms = sum(r[1] for r in rows)
     return dict(wall_s=wall, device_busy_ms=busy_ms,
                 idle_share=max(0.0, 1.0 - busy_ms / 1e3 / wall),
+                kernels=kernel_sums(rows), wrappers=wrappers,
                 top=[dict(op=k[:80], device_ms=ms, calls=n)
                      for k, ms, n in rows[:top]])
 
@@ -499,30 +589,59 @@ def bound(name, args):
     return 4 * b * r + nbr_bytes + table_bytes + out_bytes, int(need.sum())
 
 
-def time_kernel(name, args, reps, flush):
-    """(kernel ms, plain ms) for one captured call. The kernel's launcher
-    is timed alone, on the inputs `ops` hands it (a lane axis of 1 for a
-    single-lane kernel, V padded to whole words for a packing kernel); the
-    plain version on the call's own inputs."""
+def timed_call(picked, name):
+    """(level, args) of the captured call a kernel is timed on: of the
+    calls `pick_calls` chose for it, the one with the largest tile (for a
+    packing kernel, the most flags); hub_bottomup on the lane of the timed
+    hub_bottomup_batch call with the most live rows."""
+    src_name = "hub_bottomup_batch" if name == "hub_bottomup" else name
+    _, lvl, _, cargs = max(
+        picked[src_name], key=lambda c: c[3][1].numel()
+        if not src_name.startswith("frontier_fused")
+        else int(c[3][0].sum()))
+    if name == "hub_bottomup":
+        deg, nbrs, fr = cargs
+        lane = int((deg != 0).sum(dim=1).argmax())
+        cargs = (deg[lane], nbrs, fr[lane])
+    return lvl, cargs
+
+
+def launch_plan(name):
+    """The plan of a pull kernel's last launch (empty for the others, and
+    for a tree whose pull kernels record none)."""
+    from repro_torch.kernels import bottomup
+    if name.removesuffix("_batch") not in ("bottomup", "hub_bottomup"):
+        return {}
+    return dict(getattr(bottomup, "LAST_PLAN", {}))
+
+
+def kernel_fn(name, args):
+    """A call of kernel `name`'s launcher alone on a captured call's inputs,
+    as `ops` hands them over (a lane axis of 1 for a single-lane kernel, V
+    padded to whole words for a packing kernel)."""
     from repro_torch.kernels import bottomup, frontier_fused, hub, ops, topdown
     if name == "topdown":
         deg, nbrs, table = args
         dc = deg.contiguous()
-        cuda = (lambda: topdown.topdown_cuda(dc, nbrs, table))
-    elif name.startswith("frontier_fused"):
+        return lambda: topdown.topdown_cuda(dc, nbrs, table)
+    if name.startswith("frontier_fused"):
         flags, deg = as_batch(name, args)
         fp, dp = ops.pad_words(flags), ops.pad_words(deg)
-        cuda = (lambda: frontier_fused.frontier_fused_batch_cuda(fp, dp))
-    else:
-        deg, nbrs, table = as_batch(name, args)
-        dc = deg.contiguous()
-        launch = {"bottomup": bottomup.bottomup_batch_cuda,
-                  "topdown": topdown.topdown_batch_cuda,
-                  "hub_bottomup": hub.hub_bottomup_batch_cuda}[
-                      name.removesuffix("_batch")]
-        cuda = (lambda: launch(dc, nbrs, table))
+        return lambda: frontier_fused.frontier_fused_batch_cuda(fp, dp)
+    deg, nbrs, table = as_batch(name, args)
+    dc = deg.contiguous()
+    launch = {"bottomup": bottomup.bottomup_batch_cuda,
+              "topdown": topdown.topdown_batch_cuda,
+              "hub_bottomup": hub.hub_bottomup_batch_cuda}[
+                  name.removesuffix("_batch")]
+    return lambda: launch(dc, nbrs, table)
+
+
+def time_kernel(name, args, reps, flush):
+    """(kernel ms, plain ms) for one captured call: the launcher alone
+    (`kernel_fn`), the plain version on the call's own inputs."""
     plain = plain_fn(name)
-    return (time_ms(cuda, reps, flush),
+    return (time_ms(kernel_fn(name, args), reps, flush),
             time_ms(lambda: plain(*args), reps, flush))
 
 
@@ -833,16 +952,7 @@ def bfs_paths(args, rng, dev, record, errs):
     flush = torch.empty(1 << 27, dtype=torch.uint8, device=dev)
     entries = []
     for name, (source, replaces) in BFS_KERNELS.items():
-        src_name = "hub_bottomup_batch" if name == "hub_bottomup" else name
-        # the call moving the most bytes at that level
-        _, lvl, _, cargs = max(
-            picked[src_name], key=lambda c: c[3][1].numel()
-            if not src_name.startswith("frontier_fused")
-            else int(c[3][0].sum()))
-        if name == "hub_bottomup":
-            deg, nbrs, fr = cargs
-            lane = int((deg != 0).sum(dim=1).argmax())
-            cargs = (deg[lane], nbrs, fr[lane])
+        lvl, cargs = timed_call(picked, name)
         ms, plain_ms = time_kernel(name, cargs, TIMING_REPS, flush)
         nbytes, nops = bound(name, cargs)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -856,12 +966,14 @@ def bfs_paths(args, rng, dev, record, errs):
         if name == "hub_bottomup":
             entry["note"] = HUB_BOTTOMUP_NOTE
         entries.append(entry)
+        plan = launch_plan(name)
         record.setdefault("timed_calls", []).append(dict(
             name=name, level=lvl, shapes=[list(a.shape) for a in cargs],
-            bytes=nbytes, ops=nops))
+            bytes=nbytes, ops=nops, plan=plan))
         log(f"phase 5: {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
             f"{max(t_bytes, t_ops):.4f} ms by {entry['bound_by']}) "
-            f"at {[list(a.shape) for a in cargs]}")
+            f"at {[list(a.shape) for a in cargs]}"
+            + (f", plan {plan}" if plan else ""))
     record["kernels"] = entries
     record["profiles"] = {}
     for label, fn in (
@@ -873,7 +985,13 @@ def bfs_paths(args, rng, dev, record, errs):
         record["profiles"][label] = prof
         log(f"phase 5: profiled {label}: wall {prof['wall_s']:.3f} s, "
             f"device busy {prof['device_busy_ms']:.1f} ms (idle share "
-            f"{prof['idle_share']:.3f}); top device time:")
+            f"{prof['idle_share']:.3f}); the port's kernels: "
+            + ", ".join(f"{src} {k['device_ms']:.3f} ms in {k['calls']} calls"
+                        for src, k in sorted(prof["kernels"].items()))
+            + "; by wrapper: "
+            + ", ".join(f"{n} {k['device_ms']:.3f} ms in {k['calls']} calls"
+                        for n, k in sorted(prof["wrappers"].items()))
+            + "; top device time:")
         for row in prof["top"]:
             log(f"    {row['device_ms']:10.2f} ms {row['calls']:6d}x "
                 f"{row['op']}")
@@ -1047,9 +1165,10 @@ def main() -> int:
     # 2. kernels against their plain versions, random inputs
     errs = {n: 0 for n in BFS_KERNELS}
     t0 = time.perf_counter()
-    n_cases, n_hub = phase_kernels(rng, np.random.default_rng([args.seed, 1]),
-                                   dev, errs)
-    log(f"phase 2: {n_cases} random cases per kernel, {n_hub} per hub "
+    n_cases = phase_kernels(rng, np.random.default_rng([args.seed, 1]), dev,
+                            errs)
+    log(f"phase 2: {n_cases} random cases per kernel, {len(HUB_CASES)} more "
+        f"wide ones per hub kernel, {len(SKEWED_CASES)} skewed ones per pull "
         f"kernel, bitwise equal ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     n_dec, dec_err, cap_gap = phase_decode_kernel(

@@ -24,7 +24,7 @@ import threading
 import time
 from pathlib import Path
 
-SOURCES = ("bottomup", "decode_attn", "frontier_fused", "hub", "topdown")
+SOURCES = ("bottomup", "decode_attn", "frontier_fused", "topdown")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -36,7 +36,9 @@ _F = ctypes.c_float
 # otherwise (see each source's footer).
 ENTRY_POINTS = {
     "bottomup": ("repro_bottomup_batch",
-                 [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _P]),
+                 [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _I,
+                  _I64, _I64, _I, _I, _P]),
+    "bottomup_resident": ("repro_bottomup_resident", [_I, _P, _I]),
     "decode_attn": ("repro_decode_attention",
                     [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                      _I64, _I64, _F, _F, _I, _I, _P]),
@@ -44,12 +46,11 @@ ENTRY_POINTS = {
                              [_I64, _I64, _I, _P, _I]),
     "frontier_fused": ("repro_frontier_fused_batch",
                        [_P, _P, _P, _P, _P, _I64, _I64, _I, _P]),
-    "hub": ("repro_hub_bottomup_batch",
-            [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _P]),
     "topdown": ("repro_topdown_batch",
                 [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _P]),
 }
-LIBRARY = {"decode_attn_resident": "decode_attn"}
+LIBRARY = {"decode_attn_resident": "decode_attn",
+           "bottomup_resident": "bottomup"}
 
 _lock = threading.RLock()      # build_all and first loads
 _functions: dict = {}

@@ -1,5 +1,6 @@
-"""Hub-side bottom-up (pull) first-hit scan: the CUDA kernel's launcher and
-its plain PyTorch version.
+"""Hub-side bottom-up (pull) first-hit scan: its launcher (the pull kernel
+of `kernels.bottomup`, which takes every width) and its plain PyTorch
+version.
 
 Semantics (the JAX package's `hub_bottomup_batch_pallas`, and
 `hub_bottomup_pallas` for one lane): those of `kernels.bottomup`. For each
@@ -14,7 +15,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
 from repro_torch.kernels import bottomup as _bu
 
 # Slots the plain version expands at once: B * rows * W, rows chunked.
@@ -23,25 +23,10 @@ PLAIN_CHUNK_SLOTS = 1 << 26
 
 def hub_bottomup_batch_cuda(deg: torch.Tensor, nbrs: torch.Tensor,
                             frontier: torch.Tensor):
-    """Launch `csrc/hub.cu` on the current stream: (found uint8[B, R],
-    parent int32[B, R]) for `deg` int32[B, R] and `nbrs` int32[R, W]."""
-    _build.require(deg, torch.int32, 2, "hub_bottomup deg")
-    _build.require(nbrs, torch.int32, 2, "hub_bottomup nbrs")
-    _build.require(frontier, torch.uint8, 2, "hub_bottomup frontier")
-    b, r = deg.shape
-    w = nbrs.shape[1]
-    v = frontier.shape[1]
-    if frontier.shape[0] != b or nbrs.shape[0] != r or v == 0:
-        raise ValueError(f"hub_bottomup: deg {tuple(deg.shape)}, nbrs "
-                         f"{tuple(nbrs.shape)}, frontier "
-                         f"{tuple(frontier.shape)} do not fit")
-    found = torch.empty((b, r), dtype=torch.uint8, device=deg.device)
-    parent = torch.empty((b, r), dtype=torch.int32, device=deg.device)
-    _build.launch("hub", deg.data_ptr(), nbrs.data_ptr(), frontier.data_ptr(),
-                  found.data_ptr(), parent.data_ptr(), b, r, w, v,
-                  device=deg.device.index,
-                  stream=torch.cuda.current_stream(deg.device).cuda_stream)
-    return found, parent
+    """Launch the pull kernel (`csrc/bottomup.cu`, which takes every width)
+    on the current stream: (found uint8[B, R], parent int32[B, R]) for
+    `deg` int32[B, R] and the hub tile `nbrs` int32[R, W]."""
+    return _bu.pull_cuda(deg, nbrs, frontier, "hub_bottomup")
 
 
 def hub_bottomup_batch_plain(deg: torch.Tensor, nbrs: torch.Tensor,

@@ -61,8 +61,8 @@ def bottomup_batch(deg, nbrs, frontier, *, slab: int = 32):
 
     `deg` int32[B, R] lane-masked degrees, `nbrs` int32[R, W] shared tile,
     `frontier` uint8[B, V] per lane. `slab` is kept for parity with the JAX
-    wrapper: the first hit does not depend on it, and the kernel scans 32
-    slots per warp step.
+    wrapper: the first hit does not depend on it, and the kernel scans a
+    row in chunks of its plan's group x 4 slots (`bottomup.pull_plan`).
     """
     del slab
     b, r = deg.shape

@@ -59,6 +59,77 @@ def test_bottomup_batch_matches_pallas(b, r, w, v, masked, slab):
     assert f1.sum() > 0                       # some rows found a parent
 
 
+def _first_hits(seed, b, r, w, slots):
+    """A pull case whose first hits are set: lane l of row i first hits at
+    slot `slots[(l + i) % len(slots)]` (None: no hit), with later hits
+    after it and a hit past the degree that must not count. Ids are
+    distinct (V = R * W + 64), so one row's frontier bits do not reach
+    another row; the degree is W or random above the first hit."""
+    rng = np.random.default_rng(seed)
+    v = r * w + 64
+    nbrs = (1 + rng.permutation(r * w)).reshape(r, w).astype(np.int32)
+    deg = np.zeros((b, r), np.int32)
+    fr = np.zeros((b, v), np.uint8)
+    fr[:, r * w + 1:] = rng.random((b, 63)) < 0.5       # not in any row
+    for lane in range(b):
+        for i in range(r):
+            s = slots[(lane + i) % len(slots)]
+            lo = 1 if s is None else s + 1
+            d = w if rng.random() < 0.5 else int(rng.integers(lo, w + 1))
+            deg[lane, i] = d
+            if s is not None:
+                fr[lane, nbrs[i, s]] = 1
+                later = rng.integers(s, w, 3)
+                fr[lane, nbrs[i, later]] = 1
+            if d < w:
+                fr[lane, nbrs[i, d]] = 1                # past the degree
+    return deg, nbrs, fr
+
+
+# (B, R, W, first-hit slots, seed): lanes of one row hitting at different
+# slots (slot 0 in one, W - 1 in another), deg == W, W of 33, 40 and 96
+# (chunks and groups that do not divide W), B = 16 and B = 3; hub widths
+# with first hits past the first chunk (128), past the warp phase (256)
+# and at the last slot.
+NARROW_SLOTS = [0, -1, None, 1, 3, 4, 16]
+HUB_SLOTS = [0, -1, None, 127, 128, 255, 256, 700]
+FIRST_HIT_CASES = [(8, 40, 32, NARROW_SLOTS, 1), (3, 17, 33, NARROW_SLOTS, 2),
+                   (16, 50, 40, NARROW_SLOTS, 3), (8, 30, 96, NARROW_SLOTS, 4),
+                   (1, 20, 32, NARROW_SLOTS, 5), (16, 9, 64, NARROW_SLOTS, 6),
+                   (8, 6, 1024, HUB_SLOTS, 7), (16, 5, 300, HUB_SLOTS, 8),
+                   (1, 4, 520, HUB_SLOTS, 9), (3, 7, 2048, HUB_SLOTS, 10)]
+
+
+def _first_hit_case(b, r, w, slots, seed):
+    """(deg, nbrs, frontier, first-hit slot per (lane, row)), slot -1 (or
+    one past the row) being the row's last."""
+    slots = [s if s is None else w - 1 if s == -1 else min(s, w - 1)
+             for s in slots]
+    first = {(lane, i): slots[(lane + i) % len(slots)]
+             for lane in range(b) for i in range(r)}
+    return (*_first_hits(seed, b, r, w, slots), first)
+
+
+@pytest.mark.parametrize("kernel", ["bottomup_batch", "hub_bottomup_batch"])
+@pytest.mark.parametrize("b,r,w,slots,seed", FIRST_HIT_CASES)
+def test_pull_first_hits_match_pallas(kernel, b, r, w, slots, seed):
+    """The two pull scans against the JAX package's Pallas kernels on rows
+    whose first hits are set: found and the parent at the lowest hitting
+    slot, the degree masking a later hit."""
+    deg, nbrs, fr, first = _first_hit_case(b, r, w, slots, seed)
+    f1, p1 = getattr(ops, kernel)(torch.from_numpy(deg),
+                                  torch.from_numpy(nbrs), torch.from_numpy(fr))
+    f2, p2 = getattr(jops, kernel)(jnp.asarray(deg), jnp.asarray(nbrs),
+                                   jnp.asarray(fr), interpret=True)
+    _eq(f1, f2)
+    _eq(p1, p2)
+    for (lane, i), s in first.items():
+        if s is None:
+            assert (f1[lane, i], p1[lane, i]) == (0, 2**31 - 1)
+        else:
+            assert (f1[lane, i], p1[lane, i]) == (1, nbrs[i, s])
+
+
 @pytest.mark.parametrize("b,r,w,v,masked,slab", SHAPES)
 def test_topdown_batch_matches_pallas(b, r, w, v, masked, slab):
     deg, nbrs, vis = _inputs(r * 17 + w, b, r, w, v, masked, density=0.5)
@@ -209,7 +280,10 @@ def test_kernels_match_plain_on_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (run on the GPU host)")
     dev = torch.device("cuda")
-    for b, r, w, v, masked, _ in SHAPES + [(8, 7, 4096, 5000, 2, 32)]:
+    # the last two with rows enough for the packed frontier (R * 16 >= V)
+    for b, r, w, v, masked, _ in SHAPES + [(8, 7, 4096, 5000, 2, 32),
+                                           (8, 20000, 32, 5000, 2, 32),
+                                           (16, 20000, 40, 3000, 3, 32)]:
         deg, nbrs, table = (torch.from_numpy(x).to(dev)
                             for x in _inputs(r + w, b, r, w, v, masked))
         n = dict(ops.LAUNCHES)
@@ -240,3 +314,17 @@ def test_kernels_match_plain_on_cuda():
                 assert x.shape == y.shape and torch.equal(x, y)
         assert all(ops.LAUNCHES[k] == n[k] + 1 for k in n
                    if k != "decode_attention")
+    # the first-hit cases, through both pull kernels and their one-lane
+    # launches
+    for case in FIRST_HIT_CASES:
+        deg, nbrs, table = (torch.from_numpy(x).to(dev)
+                            for x in _first_hit_case(*case)[:3])
+        for batch, one, plain in (
+                (ops.bottomup_batch, ops.bottomup, tbu.bottomup_batch_plain),
+                (ops.hub_bottomup_batch, ops.hub_bottomup,
+                 thub.hub_bottomup_batch_plain)):
+            f1, p1 = batch(deg, nbrs, table)
+            f2, p2 = plain(deg, nbrs, table)
+            assert torch.equal(f1, f2) and torch.equal(p1, p2), case
+            f1, p1 = one(deg[0], nbrs, table[0])
+            assert torch.equal(f1, f2[0]) and torch.equal(p1, p2[0]), case
