@@ -8,12 +8,14 @@ nothing of the JAX package. Phases, in order (any failure ends the run with
 a nonzero exit; nothing is caught):
 
 1. Device: the card's name and power limit, then the kernels' build time.
-2. Each of the eight BFS kernels against its plain PyTorch version on
-   random inputs (ragged R, V not a multiple of 32, masked lanes, degree-0
-   rows, B in {1, 8}, rows of width 32 to 262,144), bitwise; the
+2. Each of the ten BFS kernel entries against its plain PyTorch version
+   on random inputs (ragged R, V not a multiple of 32, masked lanes,
+   degree-0 rows, B in {1, 8}, rows of width 32 to 262,144), bitwise; the
    single-lane kernels on lane 0 of the same inputs; the two pull kernels
-   also on cases with RMAT-like skew (most rows of degree 1-4, a few
-   whose first hit lies deep, B in {1, 8, 16}). The decode attention
+   and the push also on cases with RMAT-like skew (most rows of degree
+   1-4, a few whose first hit lies deep, B in {1, 8, 16}); the push with
+   `keep` on and off, from a `pcand` that already holds ids, and with
+   10^5 rows pushing into 16 vertices. The decode attention
    kernel against its plain version on random (B, S, K, g, h) cases:
    gemma2-9b's, yi-9b's and stablelm-3b's decode shapes, g = 16, rows not
    16-byte aligned, S not a multiple of the split length, tiny edges; fp32
@@ -34,16 +36,20 @@ a nonzero exit; nothing is caught):
    against the same weights on the CPU: equal tokens, logits within 1e-4.
 4. The paths at full size, through `Engine.bfs` on Graph500 RMAT at
    --scale (generated once): unsplit (8 roots batched, then 4 in Graph500
-   mode), hub split (the same), and 2 roots through the stepper. Launch
-   counts are reset just before each path and read just after it; each
-   path must have launched each of its kernels. Every tree passes a
-   vectorised Graph500 check. Then each kernel is held against its plain
-   version on the inputs captured at the level where it had the most live
-   rows (2b).
+   mode), hub split (the same), and 2 roots through the stepper (each on
+   a fresh bucket warms first, inside the path's run). Launch counts are
+   reset just before each path and read just after it; each path must
+   have launched each of its kernels. Every tree passes a vectorised
+   Graph500 check. Then each kernel is held against its plain version on
+   the inputs captured at the level where it had the most live rows (2b):
+   the push from INT_MAX and from the level's final `pcand`, the fresh
+   entries on the push's calls.
 5. BFS kernel times at those shapes: CUDA events (median), the plain
-   version's time and the bound (bytes this call needs / 3.35 TB/s); a
-   profile of one search on each path, with the summed device time and
-   calls of each of the port's kernels in it.
+   version's time and the bound (bytes this call needs / 3.35 TB/s); for
+   the push also the parent's route on the same call (the fresh entry,
+   `where` and `scatter_reduce_`, timed as one); a profile of one search
+   on each path, with the summed device time and calls of each of the
+   port's kernels in it.
 6. The serving path at gemma2-9b's full width (42 layers, bf16, random
    weights from --seed), after the BFS phases' tensors are freed:
    `launch.serve.serve` (what `main` runs) with batch 4, a 4,200-token
@@ -86,6 +92,8 @@ BFS_KERNELS = {
                        "src/repro/kernels/bottomup.py:173"),
     "topdown_batch": ("src/repro_torch/kernels/csrc/topdown.cu",
                       "src/repro/kernels/topdown.py:108"),
+    "topdown_push_batch": ("src/repro_torch/kernels/csrc/topdown.cu",
+                           "src/repro/kernels/topdown.py:108"),
     "frontier_fused_batch": ("src/repro_torch/kernels/csrc/frontier_fused.cu",
                              "src/repro/kernels/frontier_fused.py:124"),
     "hub_bottomup_batch": ("src/repro_torch/kernels/csrc/bottomup.cu",
@@ -94,6 +102,8 @@ BFS_KERNELS = {
                  "src/repro/kernels/bottomup.py:92"),
     "topdown": ("src/repro_torch/kernels/csrc/topdown.cu",
                 "src/repro/kernels/topdown.py:45"),
+    "topdown_push": ("src/repro_torch/kernels/csrc/topdown.cu",
+                     "src/repro/kernels/topdown.py:45"),
     "frontier_fused": ("src/repro_torch/kernels/csrc/frontier_fused.cu",
                        "src/repro/kernels/frontier_fused.py:61"),
     "hub_bottomup": ("src/repro_torch/kernels/csrc/bottomup.cu",
@@ -123,11 +133,22 @@ SDPA_NOTE = ("F.scaled_dot_product_attention (enable_gqa, boolean mask from "
              "computes the soft-capped one the model runs (cap 50)")
 # The kernels each full-size path must launch.
 PATH_KERNELS = {
-    "unsplit": ("bottomup_batch", "topdown_batch", "frontier_fused_batch"),
-    "split": ("hub_bottomup_batch", "bottomup_batch", "topdown_batch",
+    "unsplit": ("bottomup_batch", "topdown_push_batch",
+                "frontier_fused_batch"),
+    "split": ("hub_bottomup_batch", "bottomup_batch", "topdown_push_batch",
               "frontier_fused_batch"),
-    "stepper": ("bottomup", "topdown", "frontier_fused"),
+    "stepper": ("bottomup", "topdown_push", "frontier_fused"),
 }
+# The push updates `pcand` (its argument 4) in place.
+PUSH = ("topdown_push_batch", "topdown_push")
+# The fresh entries leave the paths: each is checked and timed on the
+# calls of its push.
+FRESH_OF = {"topdown_batch": "topdown_push_batch", "topdown": "topdown_push"}
+FRESH_NOTE = ("the TPU kernel's function (fresh uint8[B, C, W]); no path "
+              "launches it since the push replaced it with its caller's "
+              "scatter-min; checked in phases 2 and 2b and timed on the "
+              "push's call")
+INT_MAX = 2**31 - 1
 HUB_BOTTOMUP_NOTE = (
     "no path of the JAX package calls hub_bottomup_pallas (only "
     "kernels/ops.py); checked in phase 2 and timed on lane 0 of a captured "
@@ -161,7 +182,7 @@ def max_abs_err(a, b) -> int:
 
 def plain_fn(name):
     from repro_torch.kernels import bottomup, frontier_fused, hub, topdown
-    mod = {"bottomup": bottomup, "topdown": topdown,
+    mod = {"bottomup": bottomup, "topdown": topdown, "topdown_push": topdown,
            "frontier_fused": frontier_fused,
            "hub_bottomup": hub}[name.removesuffix("_batch")]
     return getattr(mod, name + "_plain")
@@ -169,10 +190,18 @@ def plain_fn(name):
 
 def kernel_vs_plain(name, args, errs):
     """Run kernel `name` through its ops wrapper (CUDA tensors: the kernel)
-    and its plain version on the same tensors; assert bitwise equality."""
+    and its plain version on the same tensors; assert bitwise equality.
+    The push runs each side on its own copy of `pcand`."""
     from repro_torch.kernels import ops
-    out_k = getattr(ops, name)(*args)
-    out_p = plain_fn(name)(*args)
+    if name in PUSH:
+        ka, pa = list(args), list(args)
+        ka[4], pa[4] = args[4].clone(), args[4].clone()
+        getattr(ops, name)(*ka)
+        plain_fn(name)(*pa)
+        out_k, out_p = ka[4], pa[4]
+    else:
+        out_k = getattr(ops, name)(*args)
+        out_p = plain_fn(name)(*args)
     out_k = out_k if isinstance(out_k, tuple) else (out_k,)
     out_p = out_p if isinstance(out_p, tuple) else (out_p,)
     for k, p in zip(out_k, out_p):
@@ -239,11 +268,54 @@ SKEWED_CASES = [(16, 300001, 32, 4194304, 0.001), (8, 200003, 32, 1000003,
                 (8, 300, 4096, 4194304, 0.2), (16, 40, 65536, 4194304, 0.5)]
 
 
-def phase_kernels(rng, hub_rng, dev, errs):
+# (B, R, W, V, targets): 10^5 rows live in every lane, every slot naming
+# one of 16 unvisited vertices (slots past the degree too).
+CONTENTION = (8, 100_000, 32, 1 << 20, 16)
+
+
+def make_contention_case(rng, dev, b, r, w, v, targets):
+    """(deg, nbrs, flags) on `dev`: every row live in every lane, ids in
+    0 .. targets - 1, those vertices unvisited in every lane."""
+    import torch
+    deg = np.repeat(rng.integers(1, w + 1, (1, r)), b, 0).astype(np.int32)
+    nbrs = rng.integers(0, targets, (r, w)).astype(np.int32)
+    flags = (rng.random((b, v)) < 0.5).astype(np.uint8)
+    flags[:, :targets] = 0
+    return tuple(torch.from_numpy(x).to(dev) for x in (deg, nbrs, flags))
+
+
+def push_args(rng, deg, nbrs, flags, keep):
+    """The push's inputs on a pull case's tensors: distinct row ids, the
+    flags as `visited`, a `pcand` that holds ids at 30% of its entries (as
+    after earlier buckets of a level), and `keep` (half the vertices) or
+    None."""
+    import torch
+    b, r = deg.shape
+    v = flags.shape[1]
+    rows = rng.permutation(max(r, v))[:r].astype(np.int32)
+    pcand = np.full((b, v), INT_MAX, np.int32)
+    some = rng.random((b, v)) < 0.3
+    pcand[some] = rng.integers(0, v, int(some.sum()))
+    kp = (rng.random(v) < 0.5).astype(np.uint8) if keep else None
+    rows, pcand, kp = (None if x is None else torch.from_numpy(x).to(
+        deg.device) for x in (rows, pcand, kp))
+    return deg, nbrs, rows, flags, pcand, kp
+
+
+def check_push(rng, deg, nbrs, flags, errs):
+    """The push, batched and on lane 0, with `keep` off and on."""
+    for keep in (False, True):
+        args = push_args(rng, deg, nbrs, flags, keep)
+        kernel_vs_plain("topdown_push_batch", args, errs)
+        d, n, r, f, pc, kp = args
+        kernel_vs_plain("topdown_push", (d[0], n, r, f[0], pc[0], kp), errs)
+
+
+def phase_kernels(rng, hub_rng, push_rng, dev, errs):
     """Every kernel on random cases; the single-lane ones on lane 0. The
-    hub and skewed cases draw from `hub_rng`, so `rng` reaches the later
-    phases (and picks the scale-22 roots) as it did before they were
-    added."""
+    hub and skewed cases draw from `hub_rng` and the push's own inputs
+    from `push_rng`, so `rng` reaches the later phases (and picks the
+    scale-22 roots) as it did before they were added."""
     import torch
     n = 0
     for spec in CASES + HUB_CASES:
@@ -252,6 +324,7 @@ def phase_kernels(rng, hub_rng, dev, errs):
         d0, f0 = deg[0], flags[0]
         kernel_vs_plain("hub_bottomup_batch", (deg, nbrs, flags), errs)
         kernel_vs_plain("hub_bottomup", (d0, nbrs, f0), errs)
+        check_push(push_rng, deg, nbrs, flags, errs)
         if spec in HUB_CASES:
             continue
         kernel_vs_plain("bottomup_batch", (deg, nbrs, flags), errs)
@@ -266,6 +339,9 @@ def phase_kernels(rng, hub_rng, dev, errs):
         for name in ("bottomup", "hub_bottomup"):
             kernel_vs_plain(name + "_batch", (deg, nbrs, flags), errs)
             kernel_vs_plain(name, (deg[0], nbrs, flags[0]), errs)
+        check_push(push_rng, deg, nbrs, flags, errs)
+    check_push(push_rng, *make_contention_case(push_rng, dev, *CONTENTION),
+               errs)
     # nf/mf near the int32 limit: every flag set, degrees summing to
     # 2^31 - 1 - 5 per lane.
     v = 4096
@@ -385,17 +461,21 @@ def install_capture():
     restore): set `path[0]` to label the calls that follow."""
     from repro_torch.kernels import ops
     calls, level, path = [], [0], [None]
-    saved = {n: getattr(ops, n) for n in BFS_KERNELS}
+    saved = {n: getattr(ops, n) for n in BFS_KERNELS if hasattr(ops, n)}
 
     def wrap(name):
         def fn(*args, **kw):
-            calls.append((path[0], level[0], name, args))
+            if name in PUSH and len(args) == 5:     # keep by default
+                calls.append((path[0], level[0], name,
+                              args + (kw.get("keep"),)))
+            else:
+                calls.append((path[0], level[0], name, args))
             if name.startswith("frontier_fused"):
                 level[0] += 1
             return saved[name](*args, **kw)
         return fn
 
-    for n in BFS_KERNELS:
+    for n in saved:
         setattr(ops, n, wrap(n))
 
     def restore():
@@ -407,7 +487,8 @@ def install_capture():
 def pick_calls(calls):
     """Per kernel, the captured calls of the level where it had the most
     live rows (nonzero degrees); a packing kernel takes the level of its
-    path's push kernel."""
+    path's push kernel (the fresh entry in a checkout older than the
+    push)."""
     import torch
     work = {}
     for _, lvl, name, args in calls:
@@ -419,8 +500,11 @@ def pick_calls(calls):
         if w > best.get(name, (-1, 0))[1]:
             best[name] = (lvl, w)
     levels = {n: lvl for n, (lvl, _) in best.items()}
-    levels["frontier_fused_batch"] = levels["topdown_batch"]
-    levels["frontier_fused"] = levels["topdown"]
+    for fresh, push in FRESH_OF.items():
+        src = push if push in levels else fresh
+        if src in levels:
+            levels["frontier_fused" + fresh.removeprefix("topdown")] = \
+                levels[src]
     torch.cuda.synchronize()
     return {name: [c for c in calls if c[2] == name and c[1] == lvl]
             for name, lvl in levels.items()}
@@ -428,19 +512,24 @@ def pick_calls(calls):
 
 # --------------------------------------------------------------- timing --
 
-def time_ms(fn, reps, flush):
+def time_ms(fn, reps, flush, setup=None):
     """Median device ms of `fn` between two CUDA events, over `reps` runs,
-    each after a read of `flush` (larger than the L2, so inputs come from
-    device memory; a read leaves no dirty lines for `fn` to write back).
-    All runs are queued behind a device-side sleep, so the host's time to
-    launch `fn` is not in the events' interval."""
+    each after `setup()` (if given; outside the events, for a kernel that
+    works in place) and a read of `flush` (larger than the L2, so inputs
+    come from device memory; a read leaves no dirty lines for `fn` to
+    write back). All runs are queued behind a device-side sleep, so the
+    host's time to launch `fn` is not in the events' interval."""
     import torch
+    if setup is not None:
+        setup()
     fn()
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     torch.cuda._sleep(SLEEP_CYCLES)
     for s, e in events:
+        if setup is not None:
+            setup()
         flush.amax()
         s.record()
         fn()
@@ -451,12 +540,13 @@ def time_ms(fn, reps, flush):
 
 # The port's kernels in a profile, by source: the first symbol (a part of
 # the kernel's name) that a device op's name contains. Older checkouts'
-# kernels match too (`scripts/time_pull.py` profiles them): their hub.cu
+# kernels match too (`scripts/time_bfs.py` profiles them): their hub.cu
 # kernel's name also contains "bottomup_", so it goes first.
 KERNEL_SYMBOLS = (("hub.cu", "::hub_"), ("bottomup.cu", "::bottomup_"),
                   ("bottomup.cu", "::pull_kernel"),
                   ("bottomup.cu", "::pack_kernel"),
                   ("topdown.cu", "::topdown_"),
+                  ("topdown.cu", "::push_kernel"),
                   ("frontier_fused.cu", "::frontier_fused_"),
                   ("decode_attn.cu", "::decode_attn_"))
 
@@ -486,14 +576,14 @@ def profile_search(search, top=10):
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.kernels import ops
-    saved = {n: getattr(ops, n) for n in BFS_KERNELS}
+    saved = {n: getattr(ops, n) for n in BFS_KERNELS if hasattr(ops, n)}
 
     def labelled(name):
         def fn(*args, **kw):
             with record_function(f"ops.{name}"):
                 return saved[name](*args, **kw)
         return fn
-    for n in BFS_KERNELS:
+    for n in saved:
         setattr(ops, n, labelled(n))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -541,10 +631,51 @@ def as_batch(name, args):
     if name in ("bottomup", "hub_bottomup", "topdown"):
         deg, nbrs, table = args
         return deg[None], nbrs, table[None]
+    if name == "topdown_push":
+        deg, nbrs, rows, table, pcand, keep = args
+        return deg[None], nbrs, rows, table[None], pcand[None], keep
     if name == "frontier_fused":
         flags, deg = args
         return flags[None], deg
     return args
+
+
+def push_bound(args):
+    """(bytes, ops, sector bytes) a push call (batch form) needs: the [B, R]
+    degrees; the ids of each row up to its largest live degree and the
+    ids of the live rows; one byte of `keep` per vertex those slots name;
+    one visited byte per distinct (lane, vertex) of the live slots that
+    `keep` lets through; a read and a write of pcand per distinct fresh
+    (lane, vertex). The ops are the live (lane, slot) tests. The sector
+    bytes count instead 32 bytes (a sector) for every visited gather and
+    for every fresh slot's pcand."""
+    import torch
+    deg, nbrs, rows, table, pcand, keep = args
+    b, r = deg.shape
+    w = nbrs.shape[1]
+    v = table.shape[1]
+    live = deg.clamp(0, w).to(torch.int64)                   # [B, R]
+    need = live.max(dim=0).values                            # [R]
+    cols = torch.arange(w, device=deg.device)
+    safe = nbrs.clamp(0, v - 1).to(torch.int64)
+    head = 4 * b * r + 4 * int(need.sum()) + 4 * int((need > 0).sum())
+    kept = None
+    if keep is not None:
+        named = safe[cols[None] < need[:, None]]
+        head += touched_bytes(keep[None], named)
+        kept = keep[safe] != 0
+    gathers, fresh = [], []
+    for lane in range(b):
+        m = cols[None] < live[lane][:, None]                 # [R, W]
+        if kept is not None:
+            m &= kept
+        gathers.append(lane * v + safe[m])
+        fresh.append(lane * v + safe[m & (table[lane][safe] == 0)])
+    gathers, fresh = torch.cat(gathers), torch.cat(fresh)
+    nbytes = (head + touched_bytes(table, gathers)
+              + 8 * touched_bytes(pcand, fresh))
+    sector = head + 32 * (gathers.numel() + fresh.numel())
+    return nbytes, int(live.sum()), sector
 
 
 def bound(name, args):
@@ -553,6 +684,8 @@ def bound(name, args):
     inputs (slots up to the first hit, live slots only)."""
     import torch
     args = as_batch(name, args)
+    if name in PUSH:
+        return push_bound(args)[:2]
     if name.startswith("frontier_fused"):
         flags, deg = args
         b, v = flags.shape
@@ -593,8 +726,11 @@ def timed_call(picked, name):
     """(level, args) of the captured call a kernel is timed on: of the
     calls `pick_calls` chose for it, the one with the largest tile (for a
     packing kernel, the most flags); hub_bottomup on the lane of the timed
-    hub_bottomup_batch call with the most live rows."""
+    hub_bottomup_batch call with the most live rows; a fresh entry on its
+    push's call (deg, nbrs, visited), where the checkout has the push."""
     src_name = "hub_bottomup_batch" if name == "hub_bottomup" else name
+    if FRESH_OF.get(name) in picked:
+        src_name = FRESH_OF[name]
     _, lvl, _, cargs = max(
         picked[src_name], key=lambda c: c[3][1].numel()
         if not src_name.startswith("frontier_fused")
@@ -603,6 +739,8 @@ def timed_call(picked, name):
         deg, nbrs, fr = cargs
         lane = int((deg != 0).sum(dim=1).argmax())
         cargs = (deg[lane], nbrs, fr[lane])
+    if src_name != name and name in FRESH_OF:
+        cargs = (cargs[0], cargs[1], cargs[3])
     return lvl, cargs
 
 
@@ -637,12 +775,50 @@ def kernel_fn(name, args):
     return lambda: launch(dc, nbrs, table)
 
 
+def parent_route(deg, nbrs, rows, visited, pcand, keep):
+    """The top-down route of the checkouts before the push, on one bucket:
+    the fresh entry's kernel, the `keep` mask of the destinations, `where`,
+    then `scatter_reduce_("amin")` into `pcand`, all on the card."""
+    import torch
+    from repro_torch.kernels import topdown
+    b, v = visited.shape
+    fresh = topdown.topdown_batch_cuda(deg, nbrs, visited)
+    dst = nbrs.clamp(0, v - 1).reshape(-1).to(torch.int64)
+    if keep is not None:
+        fresh = fresh & keep[dst].reshape(nbrs.shape)[None]
+    src = torch.where(fresh != 0, rows[None, :, None], INT_MAX)
+    pcand.scatter_reduce_(1, dst[None].expand(b, -1), src.reshape(b, -1),
+                          "amin", include_self=True)
+
+
 def time_kernel(name, args, reps, flush):
-    """(kernel ms, plain ms) for one captured call: the launcher alone
-    (`kernel_fn`), the plain version on the call's own inputs."""
+    """(kernel ms, plain ms, route ms) for one captured call: the launcher
+    alone (`kernel_fn`), the plain version on the call's own inputs; for
+    the push, each from a `pcand` of INT_MAX (refilled before every run,
+    outside the timing), and the parent's route (`parent_route`) on the
+    same call, which must give the push's bits; None for the others."""
+    import torch
     plain = plain_fn(name)
-    return (time_ms(kernel_fn(name, args), reps, flush),
-            time_ms(lambda: plain(*args), reps, flush))
+    if name not in PUSH:
+        return (time_ms(kernel_fn(name, args), reps, flush),
+                time_ms(lambda: plain(*args), reps, flush), None)
+    from repro_torch.kernels import topdown
+    deg, nbrs, rows, vis, pc, keep = as_batch(name, args)
+    deg = deg.contiguous()
+    work = torch.empty_like(pc)
+
+    def setup():
+        work.fill_(INT_MAX)
+    out = []
+    for fn in (topdown.topdown_push_cuda, topdown.topdown_push_batch_plain,
+               parent_route):
+        out.append(time_ms(lambda: fn(deg, nbrs, rows, vis, work, keep),
+                           reps, flush, setup))
+        if fn is topdown.topdown_push_cuda:
+            pushed = work.clone()
+        else:
+            assert equal(work, pushed), f"{fn.__name__} != the push"
+    return tuple(out)
 
 
 def trees_ok(check, *results):
@@ -852,7 +1028,7 @@ def profile_decode_step(step):
 
 def bfs_paths(args, rng, dev, record, errs):
     """Phases 4, 2b and 5: the BFS paths on Graph500 RMAT at --scale; the
-    kernels line's entries of the eight BFS kernels."""
+    kernels line's entries of the ten BFS kernel entries."""
     import torch
     from repro_torch.core import graph as G
     from repro_torch.engine import Engine
@@ -937,10 +1113,22 @@ def bfs_paths(args, rng, dev, record, errs):
         f"{stepper.teps_hmean / 1e9:.3f} GTEPS")
     picked = pick_calls(calls)
     n_checked = 0
+    fresh_of_push = {push: fresh for fresh, push in FRESH_OF.items()}
     for name, mine in picked.items():
         for _, _, _, cargs in mine:
-            kernel_vs_plain(name, cargs, errs)
-            n_checked += 1
+            if name not in PUSH:
+                kernel_vs_plain(name, cargs, errs)
+                n_checked += 1
+                continue
+            # The captured pcand is the level's final one (the push
+            # updated it in place after the capture): from it, and from
+            # INT_MAX as the level's first bucket saw it.
+            deg, nbrs, rows, vis, pcand, keep = cargs
+            for start in (torch.full_like(pcand, INT_MAX), pcand):
+                kernel_vs_plain(name, (deg, nbrs, rows, vis, start, keep),
+                                errs)
+            kernel_vs_plain(fresh_of_push[name], (deg, nbrs, vis), errs)
+            n_checked += 3
     # hub_bottomup: lane 0 of every checked hub_bottomup_batch call
     for _, _, _, (deg, nbrs, fr) in picked["hub_bottomup_batch"]:
         kernel_vs_plain("hub_bottomup", (deg[0], nbrs, fr[0]), errs)
@@ -953,7 +1141,8 @@ def bfs_paths(args, rng, dev, record, errs):
     entries = []
     for name, (source, replaces) in BFS_KERNELS.items():
         lvl, cargs = timed_call(picked, name)
-        ms, plain_ms = time_kernel(name, cargs, TIMING_REPS, flush)
+        ms, plain_ms, route_ms = time_kernel(name, cargs, TIMING_REPS,
+                                             flush)
         nbytes, nops = bound(name, cargs)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / CUDA_CORE_OPS_PER_S * 1e3
@@ -963,16 +1152,28 @@ def bfs_paths(args, rng, dev, record, errs):
             plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None)
+        extra = ""
         if name == "hub_bottomup":
             entry["note"] = HUB_BOTTOMUP_NOTE
+        if name in FRESH_OF:
+            entry["note"] = FRESH_NOTE
+        if name in PUSH:
+            sector = push_bound(as_batch(name, cargs))[2]
+            entry.update(parent_route_ms=route_ms,
+                         sector_bound_ms=sector / HBM_BYTES_PER_S * 1e3)
+            extra = (f"; the parent's route {route_ms:.4f} ms; bound with a "
+                     f"sector a gather {entry['sector_bound_ms']:.4f} ms")
         entries.append(entry)
         plan = launch_plan(name)
         record.setdefault("timed_calls", []).append(dict(
-            name=name, level=lvl, shapes=[list(a.shape) for a in cargs],
-            bytes=nbytes, ops=nops, plan=plan))
+            name=name, level=lvl,
+            shapes=[None if a is None else list(a.shape) for a in cargs],
+            bytes=nbytes, ops=nops, plan=plan,
+            live_rows=int((cargs[0] != 0).any(dim=0).sum())
+            if cargs[0].dim() == 2 else int((cargs[0] != 0).sum())))
         log(f"phase 5: {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-            f"{max(t_bytes, t_ops):.4f} ms by {entry['bound_by']}) "
-            f"at {[list(a.shape) for a in cargs]}"
+            f"{max(t_bytes, t_ops):.4f} ms by {entry['bound_by']}{extra}) "
+            f"at {[None if a is None else list(a.shape) for a in cargs]}"
             + (f", plan {plan}" if plan else ""))
     record["kernels"] = entries
     record["profiles"] = {}
@@ -1165,11 +1366,13 @@ def main() -> int:
     # 2. kernels against their plain versions, random inputs
     errs = {n: 0 for n in BFS_KERNELS}
     t0 = time.perf_counter()
-    n_cases = phase_kernels(rng, np.random.default_rng([args.seed, 1]), dev,
-                            errs)
+    n_cases = phase_kernels(rng, np.random.default_rng([args.seed, 1]),
+                            np.random.default_rng([args.seed, 5]), dev, errs)
     log(f"phase 2: {n_cases} random cases per kernel, {len(HUB_CASES)} more "
-        f"wide ones per hub kernel, {len(SKEWED_CASES)} skewed ones per pull "
-        f"kernel, bitwise equal ({time.perf_counter() - t0:.1f} s)")
+        f"wide ones per hub kernel and push, {len(SKEWED_CASES)} skewed ones "
+        f"per pull kernel and push, the push with keep off and on and on "
+        f"{CONTENTION[1]} rows into {CONTENTION[4]} vertices, bitwise equal "
+        f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     n_dec, dec_err, cap_gap = phase_decode_kernel(
         np.random.default_rng([args.seed, 2]), dev)

@@ -1,28 +1,34 @@
-"""Time the two pull-scan kernels (`bottomup.cu`, `hub.cu`) of one or more
-checkouts of this repo on one GPU, in turns, on the calls the BFS paths
-make on Graph500 RMAT, and profile a search on each path.
+"""Time the BFS paths of one or more checkouts of this repo on one GPU, in
+turns, on Graph500 RMAT: each run's seconds, TEPS and per-level seconds,
+the top-down route on one captured call, and a profile of a search on each
+path.
 
-    python3 scripts/time_pull.py build/parent . . build/parent
+    python3 scripts/time_bfs.py build/parent . . build/parent
 
 Each RUN is a checkout's root. The graph (--scale, --seed) is made
-once, by this checkout, and saved under `build/time_pull/`; each run is a
+once, by this checkout, and saved under `build/time_bfs/`; each run is a
 process of its own with that checkout's `src` first on the path, which
 loads it and, with `chip_smoke.py`'s code from this checkout:
 
-1. drives the four BFS runs of `chip_smoke.py` phase 4 (unsplit and hub
-   split, a batch of 8 roots and 4 in Graph500 mode) and the stepper on 2
-   roots, recording each run's seconds, TEPS and launches, and capturing
-   every kernel call;
-2. times `bottomup_batch`, `hub_bottomup_batch`, `bottomup` and
-   `hub_bottomup` on the captured call `chip_smoke.py` phase 5 times
-   (`time_ms`: median of 20, each after an L2 flush, queued behind a
-   device sleep), after holding each against its plain version; a digest
-   of the inputs shows that every run timed the same call;
-3. sums the pull kernels' time over every captured call of each run
-   (`time_ms`, median of 5, cold L2 each);
-4. profiles one search on each path (unsplit batch of 8, split batch of
-   8, stepper on 1 root): wall, device busy, and the summed device time
-   and calls of each of the port's kernels, by source and by wrapper.
+1. drives the five BFS runs of `chip_smoke.py` phase 4 (unsplit and hub
+   split, a batch of 8 roots and 4 in Graph500 mode; the stepper on 2
+   roots), recording each run's wall seconds (first query on its batch
+   bucket or plan included), the result's seconds and TEPS, its per-level
+   rows (level, direction, seconds), the level driver's own timings of
+   each search it ran (init_s, agg_s: the result's copy to the host,
+   driver_overhead_s) and launches, and capturing every kernel call;
+2. times the top-down route on the call with the most live rows of the
+   unsplit batch of 8 and of the stepper (`chip_smoke.pick_calls` and
+   `timed_call` on that run's calls): the route of the checkouts before
+   the push (`chip_smoke.parent_route`: the fresh entry's kernel, `where`
+   and `scatter_reduce_`) in every checkout, and the push kernel where
+   the checkout has it, each from a `pcand` of INT_MAX (`time_ms`: median
+   of 20, cold L2, queued behind a device sleep); a digest of the call's
+   (deg, nbrs, visited) shows that every run timed the same call;
+3. profiles one search on each path (unsplit batch of 8, split batch of
+   8, stepper on 1 root): wall, device busy, idle share, the summed
+   device time and calls of each of the port's kernels by source and by
+   `ops` wrapper, and the top device ops.
 
 One JSON line per run. Needs a CUDA device; exits 2 without one.
 """
@@ -38,8 +44,9 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PULL = ("bottomup_batch", "hub_bottomup_batch", "bottomup", "hub_bottomup")
-SUM_REPS = 5      # time_ms samples per call in the per-path sums
+# (run label, push entry, fresh entry): the calls whose route is timed
+ROUTE_CALLS = (("unsplit batch of 8", "topdown_push_batch", "topdown_batch"),
+               ("stepper, 2 roots", "topdown_push", "topdown"))
 
 
 def digest(args) -> int:
@@ -54,13 +61,62 @@ def digest(args) -> int:
     return h
 
 
+def level_rows(res):
+    """Per-level (level, direction, seconds): the batch rows, or one list
+    per root on the stepper, or none (Graph500 mode on the fused path)."""
+    def rows(stats):
+        return [(r["level"], r["direction"], r["seconds"]) for r in stats]
+    if res.batch_level_stats:
+        return rows(res.batch_level_stats)
+    return [rows(s) for s in res.per_level_stats or []]
+
+
+def route_times(cs, calls, ell, flush) -> dict:
+    """The top-down route on each of ROUTE_CALLS' timed calls."""
+    import torch
+    from repro_torch.kernels import topdown
+    rows_of = {id(t.nbrs): t.rows for t in ell}
+    out = {}
+    for label, push, fresh in ROUTE_CALLS:
+        picked = cs.pick_calls([c for c in calls if c[0] == label])
+        name = push if push in picked else fresh
+        lvl, cargs = cs.timed_call(picked, name)
+        if name == push:
+            deg, nbrs, rows, vis, _, keep = cs.as_batch(push, cargs)
+        else:
+            deg, nbrs, vis = cs.as_batch(fresh, cargs)
+            rows, keep = rows_of[id(nbrs)], None
+        assert keep is None, "the unsplit path and the stepper keep all"
+        deg = deg.contiguous()
+        work = torch.empty((deg.shape[0], vis.shape[1]), dtype=torch.int32,
+                           device=deg.device)
+
+        def setup():
+            work.fill_(cs.INT_MAX)
+        row = dict(level=lvl, shapes=[list(a.shape) for a in (deg, nbrs)],
+                   live_rows=int((deg != 0).any(dim=0).sum()),
+                   digest=digest((deg, nbrs, vis)),
+                   route_ms=cs.time_ms(
+                       lambda: cs.parent_route(deg, nbrs, rows, vis, work,
+                                               None),
+                       cs.TIMING_REPS, flush, setup))
+        routed = work.clone()
+        if name == push:
+            row["push_ms"] = cs.time_ms(
+                lambda: topdown.topdown_push_cuda(deg, nbrs, rows, vis, work),
+                cs.TIMING_REPS, flush, setup)
+            assert cs.equal(work, routed), f"{label}: push != route"
+        out[label] = row
+    return out
+
+
 def child(tree: str, graph: str, seed: int) -> None:
     import torch
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     from repro_torch.core.bfs import BFSConfig
     from repro_torch.core.graph import Graph
-    from repro_torch.engine import Engine
+    from repro_torch.engine import Engine, level_loop
     from repro_torch.kernels import _build, ops
     _build.build_all()
     z = np.load(graph)
@@ -68,11 +124,19 @@ def child(tree: str, graph: str, seed: int) -> None:
     dev = torch.device("cuda", 0)
     engine = Engine(g)
     engine.session.device_graph()
-    engine.session.ell_tiles()
+    ell = engine.session.ell_tiles()
     roots = np.random.default_rng(seed).choice(np.flatnonzero(g.degrees > 0),
                                                12, replace=False)
     split = BFSConfig(hub_split=True)
-    row = dict(tree=tree, runs={})
+    row = dict(tree=tree, card=torch.cuda.get_device_name(0), runs={})
+    driver = []
+    real_run = level_loop.LevelDriver.run
+
+    def run(self, *a, **k):
+        out = real_run(self, *a, **k)
+        driver.append(out[3])
+        return out
+    level_loop.LevelDriver.run = run
     calls, path, restore = cs.install_capture()
     for label, fn, teps in (
             ("unsplit batch of 8", lambda: engine.bfs(roots[:8]), "teps"),
@@ -87,39 +151,22 @@ def child(tree: str, graph: str, seed: int) -> None:
              lambda: engine.bfs(roots[:2], backend="stepper"), "teps_hmean")):
         path[0] = label
         ops.reset_launches()
+        driver.clear()
         torch.cuda.synchronize()
         t = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
         row["runs"][label] = dict(
-            wall_s=time.perf_counter() - t, teps=float(getattr(res, teps)),
+            wall_s=time.perf_counter() - t, seconds=res.seconds,
+            per_root_seconds=res.per_root_seconds.tolist(),
+            teps=float(getattr(res, teps)), levels=level_rows(res),
+            driver=list(driver),
             launches={k: c for k, c in ops.LAUNCHES.items() if c})
     restore()
-    picked = cs.pick_calls(calls)
+    level_loop.LevelDriver.run = real_run
     flush = torch.empty(1 << 27, dtype=torch.uint8, device=dev)
-    errs = {n: 0 for n in cs.BFS_KERNELS}
-    row["kernels"] = {}
-    for name in PULL:
-        lvl, cargs = cs.timed_call(picked, name)
-        cs.kernel_vs_plain(name, cargs, errs)
-        ms, plain_ms = cs.time_kernel(name, cargs, cs.TIMING_REPS, flush)
-        nbytes, nops = cs.bound(name, cargs)
-        row["kernels"][name] = dict(
-            ms=ms, plain_ms=plain_ms, level=lvl,
-            bound_ms=max(nbytes / cs.HBM_BYTES_PER_S,
-                         nops / cs.CUDA_CORE_OPS_PER_S) * 1e3,
-            shapes=[list(a.shape) for a in cargs], digest=digest(cargs),
-            plan=cs.launch_plan(name))
-    # every captured pull call of each path, cold L2 each
-    row["summed"] = {}
-    for label, _, name, cargs in calls:
-        if name in PULL:
-            acc = row["summed"].setdefault(f"{label}: {name}",
-                                           dict(ms=0.0, calls=0))
-            acc["ms"] += cs.time_ms(cs.kernel_fn(name, cargs), SUM_REPS,
-                                    flush)
-            acc["calls"] += 1
-    del flush
+    row["route"] = route_times(cs, calls, ell, flush)
+    del flush, calls
     row["profiles"] = {}
     for label, fn in (
             ("unsplit batch of 8", lambda: engine.bfs(roots[:8])),
@@ -128,7 +175,8 @@ def child(tree: str, graph: str, seed: int) -> None:
              lambda: engine.bfs(roots[:1], backend="stepper"))):
         prof = cs.profile_search(fn)
         row["profiles"][label] = {k: prof[k] for k in (
-            "wall_s", "device_busy_ms", "idle_share", "kernels", "wrappers")}
+            "wall_s", "device_busy_ms", "idle_share", "kernels", "wrappers",
+            "top")}
     print(json.dumps(row), flush=True)
 
 
@@ -145,7 +193,7 @@ def main() -> int:
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
-        print("time_pull: no CUDA device", file=sys.stderr)
+        print("time_bfs: no CUDA device", file=sys.stderr)
         return 2
     if args.child is not None:
         child(args.child, args.graph, args.seed)
@@ -154,7 +202,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0], flush=True)
-    graph = os.path.join(ROOT, "build", "time_pull",
+    graph = os.path.join(ROOT, "build", "time_bfs",
                          f"rmat-{args.scale}-{args.seed}.npz")
     if not os.path.exists(graph):
         sys.path.insert(0, os.path.join(ROOT, "src"))

@@ -223,21 +223,14 @@ def _decide_direction(dg: DeviceGraph, cfg: BFSConfig, st: BFSState):
 
 def _topdown_step_kernels(dg: DeviceGraph, cfg: BFSConfig, ell,
                           st: BFSState):
-    """Push level through `kernels.ops.topdown`, one launch per ELL bucket.
-
-    The kernel returns the destinations with the fresh flags; the parent
-    candidates go through an int32 scatter-min, and the flags follow from
-    it (a vertex got a fresh slot iff its candidate is below INT_MAX), as
-    in `_topdown_step_kernels_batch`.
-    """
+    """Push level through `kernels.ops.topdown_push`, one launch per ELL
+    bucket into one `pcand`; the flags follow from it, as in
+    `_topdown_step_kernels_batch`."""
     pcand = torch.full((dg.num_vertices,), INT_MAX, dtype=torch.int32,
                        device=st.frontier.device)
     for rows, deg, nbrs in ell:
         act_deg = torch.where(st.frontier[rows] != 0, deg, 0)
-        fresh, dst = K.topdown(act_deg, nbrs, st.visited)
-        src = torch.where(fresh != 0, rows[:, None], INT_MAX)
-        pcand.scatter_reduce_(0, dst.reshape(-1).to(torch.int64),
-                              src.reshape(-1), "amin", include_self=True)
+        K.topdown_push(act_deg, nbrs, rows, st.visited, pcand)
     next_flags = (pcand != INT_MAX).to(torch.uint8)
     return next_flags, torch.minimum(st.parent, pcand)
 
@@ -404,16 +397,15 @@ def _hub_row_mask(dg: DeviceGraph, cfg: BFSConfig) -> torch.Tensor:
 class HubSplit(NamedTuple):
     """One graph's ELL tiles split at one `hub_deg`, built once.
 
-    `tail_dst`/`hub_dst` hold, per bucket of the whole ELL, the
-    lane-invariant side test of each slot's destination as uint8[R, W]
-    (`~hub_v[clip(nbrs)]` and `hub_v[clip(nbrs)]`): the `dst_mask` of a
-    side's push. Built by `_hub_split`.
+    `keep_tail`/`keep_hub` are `~hub_v` and `hub_v` as uint8[V]: the `keep`
+    of a side's push in a mixed step, so that each side discovers only its
+    own vertices. Built by `_hub_split`.
     """
-    hub_v: torch.Tensor    # bool[V]
+    hub_v: torch.Tensor      # bool[V]
     ell_tail: tuple
     ell_hub: tuple
-    tail_dst: tuple
-    hub_dst: tuple
+    keep_tail: torch.Tensor  # uint8[V]
+    keep_hub: torch.Tensor   # uint8[V]
 
 
 def _hub_split(dg: DeviceGraph, cfg: BFSConfig, ell) -> HubSplit:
@@ -422,11 +414,8 @@ def _hub_split(dg: DeviceGraph, cfg: BFSConfig, ell) -> HubSplit:
     def build():
         hub_v = _hub_row_mask(dg, cfg)
         ell_tail, ell_hub = ELL.split_tiles(ell, cfg.hub_deg)
-        on_hub = [hub_v[t.nbrs.clamp(0, dg.num_vertices - 1).to(torch.int64)]
-                  for t in ell]
         return ell, HubSplit(hub_v, ell_tail, ell_hub,
-                             tuple((~h).to(torch.uint8) for h in on_hub),
-                             tuple(h.to(torch.uint8) for h in on_hub))
+                             (~hub_v).to(torch.uint8), hub_v.to(torch.uint8))
     return _memo(dg, ("split", cfg.hub_deg, id(ell)), build)[1]
 
 
@@ -481,35 +470,31 @@ def init_batch(dg: DeviceGraph, cfg: BFSConfig, roots: torch.Tensor,
 
 def _topdown_step_kernels_batch(dg: DeviceGraph, cfg: BFSConfig, ell,
                                  frontier, visited, parent, mask,
-                                 dst_mask=None):
-    """Kernel push over the top-down cohort: one `topdown_batch` launch per
-    ELL bucket serves every lane; masked lanes carry zero degrees.
+                                 keep=None):
+    """Kernel push over the top-down cohort: one `topdown_push_batch`
+    launch per ELL bucket serves every lane, all into one `pcand`; masked
+    lanes carry zero degrees.
 
     The reference scatters `fresh` into the flags with a scatter-max and
-    the sources into `pcand` with a scatter-min. Here the scatter-min is
-    `scatter_reduce_("amin")` in int32, and the flags follow from it: a
-    vertex got a fresh slot iff its `pcand` is below INT_MAX (sources are
-    real ids). So no uint8 scatter-max is needed, and
+    the sources into `pcand` with a scatter-min. Here the push does the
+    scatter-min (an int32 atomicMin on the card, `scatter_reduce_("amin")`
+    in its plain version), and the flags follow from it: a vertex got a
+    fresh slot iff its `pcand` is below INT_MAX (sources are real ids). So
+    no uint8 scatter-max is needed, and
     `where(flags, min(parent, pcand), parent)` is `min(parent, pcand)`.
 
-    `dst_mask` (per bucket, uint8[R, W]: the split side's test of each
-    slot's destination, `HubSplit.tail_dst`/`hub_dst`) restricts which
-    vertices this pass may discover. It masks `fresh` before the sources
-    are taken, so the flags derived from `pcand` stay exact.
+    `keep` (uint8[V]: the split side's vertices, `HubSplit.keep_tail`/
+    `keep_hub`) restricts which vertices this pass may discover, as the
+    reference's `dst_mask` does; the push tests it before it writes
+    `pcand`, so the flags derived from `pcand` stay exact.
     """
     b, v = frontier.shape
     pcand = torch.full((b, v), INT_MAX, dtype=torch.int32,
                        device=frontier.device)
-    for i, (rows, deg, nbrs) in enumerate(ell):
+    for rows, deg, nbrs in ell:
         act = mask[:, None] & (frontier[:, rows] != 0)
         act_deg = torch.where(act, deg[None, :], 0)
-        fresh = K.topdown_batch(act_deg, nbrs, visited)       # uint8[B, R, W]
-        if dst_mask is not None:
-            fresh = fresh & dst_mask[i][None]
-        dst = nbrs.clamp(0, v - 1).reshape(-1).to(torch.int64)  # lane-invariant
-        src = torch.where(fresh != 0, rows[None, :, None], INT_MAX)
-        pcand.scatter_reduce_(1, dst[None, :].expand(b, -1),
-                              src.reshape(b, -1), "amin", include_self=True)
+        K.topdown_push_batch(act_deg, nbrs, rows, visited, pcand, keep)
     next_flags = (pcand != INT_MAX).to(torch.uint8)
     return next_flags, torch.minimum(parent, pcand)
 
@@ -559,7 +544,7 @@ def _advance_batch(dg: DeviceGraph, cfg: BFSConfig, ell, split, variant: str,
     bu_t_mask = st.active & bu_t
     td_h_mask = st.active & ~bu_h
     bu_h_mask = st.active & bu_h
-    pushes, pulls = [], []      # (lanes, dst_mask) and (lanes, tiles, hub)
+    pushes, pulls = [], []      # (lanes, keep) and (lanes, tiles, hub)
     if split is None:
         if variant in ("td", "mixed"):
             pushes.append((td_t_mask, None))
@@ -569,14 +554,15 @@ def _advance_batch(dg: DeviceGraph, cfg: BFSConfig, ell, split, variant: str,
         pushes.append((td_t_mask, None))
     else:
         if variant == "mixed":
-            pushes += [(td_t_mask, split.tail_dst), (td_h_mask, split.hub_dst)]
+            pushes += [(td_t_mask, split.keep_tail),
+                       (td_h_mask, split.keep_hub)]
         pulls += [(bu_t_mask, split.ell_tail, False),
                   (bu_h_mask, split.ell_hub, True)]
     next_flags = torch.zeros((b, v), dtype=torch.uint8, device=dev)
     parent = st.parent
-    for lanes, dst_mask in pushes:
+    for lanes, keep in pushes:
         flags, parent = _topdown_step_kernels_batch(
-            dg, cfg, ell, st.frontier, st.visited, parent, lanes, dst_mask)
+            dg, cfg, ell, st.frontier, st.visited, parent, lanes, keep)
         next_flags = torch.maximum(next_flags, flags)
     for lanes, tiles, hub in pulls:
         flags, parent = _bottomup_step_kernels_batch(

@@ -247,8 +247,12 @@ class Engine:
             bucket = _bucket_batch(b)
             backend = self._cohort_backend(cfg, bucket)
             lanes = self._lanes(roots_arr, bucket)
+            # Nothing a first run pays (library loads, first launches,
+            # first allocations) lands inside the timed search.
+            self.session.warm(("cohort_warm", cfg, bucket),
+                              lambda: backend.warm(lanes))
             if control is not None:
-                control.check()
+                control.check()      # the warm-up may outlive a deadline
             cb = (lambda row: on_level(-1, row)) if on_level else None
             t0 = time.perf_counter()
             try:
@@ -265,6 +269,8 @@ class Engine:
                                    batch_level_stats=rows)
         # Graph500 mode: one root at a time through the B=1 cohort.
         backend = self._cohort_backend(cfg, 1)
+        self.session.warm(("cohort_warm", cfg, 1),
+                          lambda: backend.warm(self._lanes(roots_arr[:1], 1)))
         parents, levels, per_root = [], [], []
         for r in roots_arr:
             if control is not None:

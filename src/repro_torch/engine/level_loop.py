@@ -167,6 +167,19 @@ class CohortBatchBackend:
         self.dispatched[variant] += 1
         return self._steps[variant](state)
 
+    def warm(self, root) -> None:
+        """Run init, the sync and each step variant once on the init state
+        (the results are dropped), then wait for the device. A query timed
+        after this pays no kernel library load, first launch, occupancy
+        query or first allocator growth at this batch bucket; the first
+        level that flips the batch into a new variant would otherwise pay
+        them inside its seconds."""
+        state = self.init(root)
+        host_sync(self.scalars(state))
+        for step in self._steps.values():
+            step(state)
+        fence(self.device)
+
     def row(self, pre, post, seconds) -> dict:
         """The level's stats-row fields beyond the driver's own."""
         # td/bu_lanes count active lanes with ANY side in that direction;
@@ -201,9 +214,7 @@ class SingleStepBackend:
 
     Wraps `repro_torch.core.bfs`'s `init_state`, `make_level_step` and
     `state_scalars`. The step's direction comes from the last sync
-    (`bu_next`), so the host branches without a second device read. Compute
-    and exchange are one step, so each row has `compute_s == seconds` and
-    `exchange_s == 0.0`.
+    (`bu_next`), so the host branches without a second device read.
     """
 
     def __init__(self, init_fn: Callable, step_fn: Callable,
@@ -223,8 +234,7 @@ class SingleStepBackend:
 
     @staticmethod
     def row(pre, post, seconds) -> dict:
-        return dict(direction="bu" if post["bu"] else "td",
-                    compute_s=seconds, exchange_s=0.0)
+        return dict(direction="bu" if post["bu"] else "td")
 
     @staticmethod
     def finalize(state):
@@ -293,8 +303,12 @@ class LevelDriver:
             fence(b.device)
             seconds = time.perf_counter() - t0
             post = host_sync(b.scalars(state))
-            row = dict(level=post["cur"], seconds=seconds,
-                       frontier_size=pre["nf"], frontier_edges=pre["mf"])
+            # Compute and exchange are one step on one device, so every
+            # row has compute_s == seconds and exchange_s == 0.0, as the
+            # reference's rows of its unsharded backends.
+            row = dict(level=post["cur"], seconds=seconds, compute_s=seconds,
+                       exchange_s=0.0, frontier_size=pre["nf"],
+                       frontier_edges=pre["mf"])
             row.update(b.row(pre, post, seconds))
             stats.append(row)
             if on_level:

@@ -48,9 +48,12 @@ ENTRY_POINTS = {
                        [_P, _P, _P, _P, _P, _I64, _I64, _I, _P]),
     "topdown": ("repro_topdown_batch",
                 [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _P]),
+    "topdown_push": ("repro_topdown_push",
+                     [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I,
+                      _P]),
 }
 LIBRARY = {"decode_attn_resident": "decode_attn",
-           "bottomup_resident": "bottomup"}
+           "bottomup_resident": "bottomup", "topdown_push": "topdown"}
 
 _lock = threading.RLock()      # build_all and first loads
 _functions: dict = {}

@@ -31,9 +31,10 @@ from repro_torch.kernels import hub as _hub
 from repro_torch.kernels import topdown as _td
 
 LAUNCHES = {"bottomup_batch": 0, "topdown_batch": 0,
-            "frontier_fused_batch": 0, "hub_bottomup_batch": 0,
-            "bottomup": 0, "topdown": 0, "frontier_fused": 0,
-            "hub_bottomup": 0, "decode_attention": 0}
+            "topdown_push_batch": 0, "frontier_fused_batch": 0,
+            "hub_bottomup_batch": 0, "bottomup": 0, "topdown": 0,
+            "topdown_push": 0, "frontier_fused": 0, "hub_bottomup": 0,
+            "decode_attention": 0}
 
 
 def reset_launches() -> None:
@@ -95,8 +96,8 @@ def topdown_batch(deg, nbrs, visited):
     """Batched top-down visited-gather: fresh uint8[B, C, W].
 
     `deg` int32[B, C] cohort-masked, `nbrs` int32[C, W] shared, `visited`
-    uint8[B, V] per lane. The lane-invariant `clip(nbrs, 0, V-1)` is the
-    caller's to compute once.
+    uint8[B, V] per lane. The TPU kernel's function; the BFS steps push
+    through `topdown_push_batch`, which needs no [B, C, W] array.
     """
     b, c = deg.shape
     w = nbrs.shape[1]
@@ -107,6 +108,27 @@ def topdown_batch(deg, nbrs, visited):
     fresh = _td.topdown_batch_cuda(deg.contiguous(), nbrs, visited)
     LAUNCHES["topdown_batch"] += 1
     return fresh
+
+
+def topdown_push_batch(deg, nbrs, rows, visited, pcand, keep=None) -> None:
+    """Batched push, in place: `pcand[lane, n] = min(pcand[lane, n],
+    rows[row])` for every slot `col < deg[lane, row]` whose clipped
+    neighbour `n` is unvisited in that lane (and `keep[n] != 0` if `keep`
+    is given).
+
+    `deg` int32[B, R] cohort-masked, `nbrs` int32[R, W] shared, `rows`
+    int32[R] the tile's vertex ids, `visited` uint8[B, V] and `pcand`
+    int32[B, V] per lane, `keep` uint8[V] or None. The result equals the
+    JAX package's `topdown_batch` followed by its scatter-min, bit for bit.
+    """
+    b, r = deg.shape
+    if r == 0 or b == 0:
+        return
+    if not deg.is_cuda:
+        _td.topdown_push_batch_plain(deg, nbrs, rows, visited, pcand, keep)
+        return
+    _td.topdown_push_cuda(deg.contiguous(), nbrs, rows, visited, pcand, keep)
+    LAUNCHES["topdown_push_batch"] += 1
 
 
 def frontier_fused_batch(flags, deg):
@@ -156,7 +178,8 @@ def hub_bottomup(deg, nbrs, frontier):
 
 def topdown(deg, nbrs, visited):
     """Top-down check of one lane: (fresh uint8[C, W], dst int32[C, W]) for
-    `deg` int32[C] and `visited` uint8[V]; `dst = clip(nbrs, 0, V-1)`."""
+    `deg` int32[C] and `visited` uint8[V]; `dst = clip(nbrs, 0, V-1)`. The
+    TPU kernel's function; the stepper pushes through `topdown_push`."""
     c, w = nbrs.shape
     if c == 0:
         return (torch.zeros((0, w), dtype=torch.uint8, device=deg.device),
@@ -166,6 +189,19 @@ def topdown(deg, nbrs, visited):
     out = _td.topdown_cuda(deg.contiguous(), nbrs, visited)
     LAUNCHES["topdown"] += 1
     return out
+
+
+def topdown_push(deg, nbrs, rows, visited, pcand, keep=None) -> None:
+    """Push of one lane, in place: `deg` int32[R], `visited` uint8[V],
+    `pcand` int32[V]; otherwise as `topdown_push_batch`."""
+    if deg.shape[0] == 0:
+        return
+    if not deg.is_cuda:
+        _td.topdown_push_plain(deg, nbrs, rows, visited, pcand, keep)
+        return
+    _td.topdown_push_cuda(deg.contiguous()[None], nbrs, rows, visited[None],
+                          pcand[None], keep)
+    LAUNCHES["topdown_push"] += 1
 
 
 def frontier_fused(flags, deg):

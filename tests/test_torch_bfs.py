@@ -269,3 +269,57 @@ def test_streaming_and_cancellation():
     with pytest.raises(QueryCancelled) as info:
         eng.bfs(MIXED_BATCH, on_level=cancel_after_two, control=ctl)
     assert len(info.value.per_level_stats[0]) == 2
+
+
+def test_fused_path_warms_each_bucket_before_timing(monkeypatch):
+    """The first query at a batch bucket runs init and every reachable step
+    variant once before the driver starts its clock, batched and in
+    Graph500 mode (the reference's `CohortBatchBackend.warm`); a second
+    query at the same bucket does not warm again."""
+    calls = []
+    real = TB._advance_batch
+
+    def step(*args):
+        calls.append(args[4])                 # the variant
+        return real(*args)
+    monkeypatch.setattr(TB, "_advance_batch", step)
+    g = GRAPHS["rmat"][0]
+    eng = Engine(g, device="cpu")
+    cfg = TB.BFSConfig()
+    res = eng.bfs([0, 11])
+    assert calls[:3] == list(TB.reachable_variants(cfg))
+    assert len(calls) == 3 + len(res.batch_level_stats)
+    assert ("cohort_warm", cfg, 8) in eng.session._warmed
+    calls.clear()
+    res = eng.bfs([0, 11, 5])                 # bucket 8 again
+    assert len(calls) == len(res.batch_level_stats)
+    calls.clear()
+    res = eng.bfs([0, 11], batched=False)     # bucket 1
+    assert ("cohort_warm", cfg, 1) in eng.session._warmed
+    assert calls[:3] == list(TB.reachable_variants(cfg))
+    assert len(calls) == 3 + sum(int(n) + 1 for n in res.num_levels)
+    one = TB.BFSConfig(heuristic="topdown")   # one reachable variant
+    calls.clear()
+    res = eng.bfs([0, 11], one)
+    assert calls[:1] == ["td"] and len(calls) == 1 + len(
+        res.batch_level_stats)
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["unsplit", "split"])
+def test_rows_have_the_reference_keys(split):
+    """Every row of both packages has the same keys, compute_s and
+    exchange_s included, as API.md promises on every backend: the cohort
+    rows (batched) and the stepper's."""
+    tg, jg = GRAPHS["rmat"]
+    roots = [0, 11, int(np.argmax(tg.degrees))]
+    kw = dict(hub_split=split, hub_deg=32)
+    mine = Engine(tg, device="cpu").bfs(roots, TB.BFSConfig(**kw))
+    ref = JaxEngine(jg).bfs(roots, JB.BFSConfig(**kw))
+    assert [set(r) for r in mine.batch_level_stats] == \
+        [set(r) for r in ref.batch_level_stats]
+    assert all(r["compute_s"] == r["seconds"] and r["exchange_s"] == 0.0
+               for r in mine.batch_level_stats)
+    mine = Engine(tg, device="cpu").bfs(roots[:2], backend="stepper")
+    ref = JaxEngine(jg).bfs(roots[:2], backend="stepper", n_parts=1)
+    assert [[set(r) for r in s] for s in mine.per_level_stats] == \
+        [[set(r) for r in s] for s in ref.per_level_stats]

@@ -295,6 +295,16 @@ def test_kernels_match_plain_on_cuda():
         assert torch.equal(f1, f2) and torch.equal(p1, p2)
         assert torch.equal(ops.topdown_batch(deg, nbrs, table),
                            ttd.topdown_batch_plain(deg, nbrs, table))
+        rows = torch.randperm(max(r, v), device=dev)[:r].to(torch.int32)
+        pc = torch.full((b, v), 2**31 - 1, dtype=torch.int32, device=dev)
+        got, want = pc.clone(), pc.clone()
+        ops.topdown_push_batch(deg, nbrs, rows, table, got)
+        ttd.topdown_push_batch_plain(deg, nbrs, rows, table, want)
+        assert torch.equal(got, want)
+        got, want = pc[0].clone(), pc[0].clone()
+        ops.topdown_push(deg[0], nbrs, rows, table[0], got)
+        ttd.topdown_push_plain(deg[0], nbrs, rows, table[0], want)
+        assert torch.equal(got, want)
         vdeg = torch.arange(v, dtype=torch.int32, device=dev)
         a = ops.frontier_fused_batch(table, vdeg)
         p = tff.frontier_fused_batch_plain(table, vdeg)
