@@ -15,7 +15,11 @@ a nonzero exit; nothing is caught):
    and the push also on cases with RMAT-like skew (most rows of degree
    1-4, a few whose first hit lies deep, B in {1, 8, 16}); the push with
    `keep` on and off, from a `pcand` that already holds ids, and with
-   10^5 rows pushing into 16 vertices. The decode attention
+   10^5 rows pushing into 16 vertices; the packing kernels with the
+   bitmap and without, on their own cases too (B in {1, 3, 8, 16, 40}, V
+   from 1 to 2^22 and not a multiple of 32, an empty lane, rows that
+   start one byte in with degrees one int32 in, all flags set at V = 2^22,
+   nf/mf at the int32 limit and one past it). The decode attention
    kernel against its plain version on random (B, S, K, g, h) cases:
    gemma2-9b's, yi-9b's and stablelm-3b's decode shapes, g = 16, rows not
    16-byte aligned, S not a multiple of the split length, tiny edges; fp32
@@ -43,13 +47,19 @@ a nonzero exit; nothing is caught):
    Graph500 check. Then each kernel is held against its plain version on
    the inputs captured at the level where it had the most live rows (2b):
    the push from INT_MAX and from the level's final `pcand`, the fresh
-   entries on the push's calls.
+   entries on the push's calls, the packing kernels with the bitmap and
+   without, there and on the call with the most set flags.
 5. BFS kernel times at those shapes: CUDA events (median), the plain
-   version's time and the bound (bytes this call needs / 3.35 TB/s); for
-   the push also the parent's route on the same call (the fresh entry,
-   `where` and `scatter_reduce_`, timed as one); a profile of one search
+   version's time and the bound (bytes this call needs / 3.35 TB/s); the
+   launch floor (an empty kernel timed the same way); for the push also
+   the parent's route on the same call (the fresh entry, `where` and
+   `scatter_reduce_`, timed as one); for the packing kernels (timed as
+   the paths call them, without the bitmap) also with the bitmap, and
+   both again on the call with the most set flags, each beside its
+   bound (the degrees counted by 32-byte sector); a profile of one search
    on each path, with the summed device time and calls of each of the
-   port's kernels in it.
+   port's kernels in it and the device ops each wrapper launched (one a
+   packing call: no fill).
 6. The serving path at gemma2-9b's full width (42 layers, bf16, random
    weights from --seed), after the BFS phases' tensors are freed:
    `launch.serve.serve` (what `main` runs) with batch 4, a 4,200-token
@@ -188,25 +198,39 @@ def plain_fn(name):
     return getattr(mod, name + "_plain")
 
 
-def kernel_vs_plain(name, args, errs):
+def kernel_vs_plain(name, args, errs, **kw):
     """Run kernel `name` through its ops wrapper (CUDA tensors: the kernel)
-    and its plain version on the same tensors; assert bitwise equality.
-    The push runs each side on its own copy of `pcand`."""
+    and its plain version on the same tensors and keywords; assert bitwise
+    equality (an output both leave out, None, is equal). The push runs each
+    side on its own copy of `pcand`."""
     from repro_torch.kernels import ops
     if name in PUSH:
         ka, pa = list(args), list(args)
         ka[4], pa[4] = args[4].clone(), args[4].clone()
-        getattr(ops, name)(*ka)
-        plain_fn(name)(*pa)
+        getattr(ops, name)(*ka, **kw)
+        plain_fn(name)(*pa, **kw)
         out_k, out_p = ka[4], pa[4]
     else:
-        out_k = getattr(ops, name)(*args)
-        out_p = plain_fn(name)(*args)
+        out_k = getattr(ops, name)(*args, **kw)
+        out_p = plain_fn(name)(*args, **kw)
     out_k = out_k if isinstance(out_k, tuple) else (out_k,)
     out_p = out_p if isinstance(out_p, tuple) else (out_p,)
     for k, p in zip(out_k, out_p):
+        if k is None or p is None:
+            assert k is None and p is None, f"{name}: an output is missing"
+            continue
         errs[name] = max(errs[name], max_abs_err(k, p))
         assert equal(k, p), f"{name}: kernel != plain version"
+
+
+def check_frontier(flags, vdeg, errs):
+    """The packing kernel with the bitmap and without, batched and on lane
+    0."""
+    for packed in (True, False):
+        kernel_vs_plain("frontier_fused_batch", (flags, vdeg), errs,
+                        packed=packed)
+        kernel_vs_plain("frontier_fused", (flags[0], vdeg), errs,
+                        packed=packed)
 
 
 def make_case(rng, dev, b, r, w, v, masked, dens):
@@ -329,10 +353,9 @@ def phase_kernels(rng, hub_rng, push_rng, dev, errs):
             continue
         kernel_vs_plain("bottomup_batch", (deg, nbrs, flags), errs)
         kernel_vs_plain("topdown_batch", (deg, nbrs, flags), errs)
-        kernel_vs_plain("frontier_fused_batch", (flags, vdeg), errs)
+        check_frontier(flags, vdeg, errs)
         kernel_vs_plain("bottomup", (d0, nbrs, f0), errs)
         kernel_vs_plain("topdown", (d0, nbrs, f0), errs)
-        kernel_vs_plain("frontier_fused", (f0, vdeg), errs)
         n += 1
     for spec in SKEWED_CASES:
         deg, nbrs, flags = make_skewed_case(hub_rng, dev, *spec)
@@ -342,17 +365,61 @@ def phase_kernels(rng, hub_rng, push_rng, dev, errs):
         check_push(push_rng, deg, nbrs, flags, errs)
     check_push(push_rng, *make_contention_case(push_rng, dev, *CONTENTION),
                errs)
-    # nf/mf near the int32 limit: every flag set, degrees summing to
-    # 2^31 - 1 - 5 per lane.
-    v = 4096
-    vdeg = np.full(v, (2**31 - 6) // v, np.int32)
-    vdeg[0] += (2**31 - 6) - int(vdeg.astype(np.int64).sum())
-    ones = torch.ones((2, v), dtype=torch.uint8, device=dev)
-    vdeg = torch.from_numpy(vdeg).to(dev)
-    kernel_vs_plain("frontier_fused_batch", (ones, vdeg), errs)
-    kernel_vs_plain("frontier_fused", (ones[0], vdeg), errs)
+    n_ff = phase_frontier(hub_rng, dev, errs)
     torch.cuda.synchronize()
-    return n + 1
+    return n + 1, n_ff
+
+
+# The packing kernel's own cases: (B, V, density), an empty last lane;
+# each also on a view whose rows start one byte in (an unaligned start, a
+# row stride of V + 1) and with degrees one int32 off 16-byte alignment.
+FRONTIER_CASES = [(b, v, 0.3) for b in (1, 3, 8, 16, 40)
+                  for v in (1, 31, 37, 4096, 10000)] + [
+                      (8, 1 << 22, 0.002), (40, 1 << 20, 0.05)]
+FRONTIER_WIDE = 1 << 22     # all flags set, B = 1, 8, 16 and 40
+
+
+def frontier_wrap(dev, b, v, total):
+    """Every flag of B lanes set, degrees summing to `total` (mod 2^32, as
+    int32) per lane; with more than one lane, the last one's first flag
+    clear."""
+    import torch
+    vdeg = np.full(v, total // v, np.int64)
+    vdeg[0] += total - int(vdeg.sum())
+    flags = torch.ones((b, v), dtype=torch.uint8, device=dev)
+    if b > 1:
+        flags[b - 1, 0] = 0
+    return flags, torch.from_numpy(vdeg.astype(np.int32)).to(dev)
+
+
+def phase_frontier(rng, dev, errs):
+    """The packing kernel, both stores, on FRONTIER_CASES (plain rows,
+    rows that start one byte in, degrees off alignment), all flags set at
+    V = 2^22, and nf/mf at the int32 limit and one past it (the wrap).
+    Returns the cases run."""
+    import torch
+    n = 0
+    for b, v, dens in FRONTIER_CASES:
+        wide = (rng.random((b, v + 1)) < dens).astype(np.uint8)
+        wide[b - 1] = 0                               # an empty lane
+        wide = torch.from_numpy(wide).to(dev)
+        deg = torch.from_numpy(
+            rng.integers(0, 1 << 12, v + 1).astype(np.int32)).to(dev)
+        for flags, vdeg in ((wide[:, :v].contiguous(), deg[:v]),
+                            (wide[:, 1:], deg[1:])):
+            check_frontier(flags, vdeg, errs)
+            n += 1
+    for b in (1, 8, 16, 40):
+        flags = torch.ones((b, FRONTIER_WIDE), dtype=torch.uint8, device=dev)
+        vdeg = torch.from_numpy(rng.integers(
+            0, 1 << 8, FRONTIER_WIDE).astype(np.int32)).to(dev)
+        check_frontier(flags, vdeg, errs)
+        n += 1
+    for total in (2**31 - 1, 2**31):
+        for b, v in ((2, 4096), (3, 10000), (1, 37)):
+            check_frontier(*frontier_wrap(dev, b, v, total), errs)
+            n += 1
+    return n
 
 
 # ---------------------------------------------------------- whole searches --
@@ -510,6 +577,15 @@ def pick_calls(calls):
             for name, lvl in levels.items()}
 
 
+def flag_call(calls, name):
+    """(level, args) of the captured call of packing kernel `name` with the
+    most set flags, on any path and level (the bottom-up levels' wide next
+    frontiers, where the kernel reads most of the degrees)."""
+    _, lvl, _, cargs = max((c for c in calls if c[2] == name),
+                           key=lambda c: int((c[3][0] != 0).sum()))
+    return lvl, cargs
+
+
 # --------------------------------------------------------------- timing --
 
 def time_ms(fn, reps, flush, setup=None):
@@ -548,6 +624,7 @@ KERNEL_SYMBOLS = (("hub.cu", "::hub_"), ("bottomup.cu", "::bottomup_"),
                   ("topdown.cu", "::topdown_"),
                   ("topdown.cu", "::push_kernel"),
                   ("frontier_fused.cu", "::frontier_fused_"),
+                  ("frontier_fused.cu", "::fused_kernel"),
                   ("decode_attn.cu", "::decode_attn_"))
 
 
@@ -565,12 +642,37 @@ def kernel_sums(rows):
     return sums
 
 
+# CUDA runtime calls that put one op on a stream (kernels, fills, copies)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemsetAsync",
+                "cudaMemcpyAsync")
+
+
+def range_launches(events) -> dict:
+    """{`ops` range name: the CUDA runtime launch calls made inside its
+    ranges}, by host time: a kernel launched through ctypes is linked to no
+    PyTorch op, so the range's own tree does not hold it, but its runtime
+    call lies inside the range (one thread launches)."""
+    import bisect
+    from torch.autograd import DeviceType
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    starts = sorted(e.time_range.start for e in host
+                    if e.name.startswith(LAUNCH_CALLS))
+    out = {}
+    for e in host:           # the device's copy of a range is not counted
+        if e.name.startswith("ops."):
+            n = (bisect.bisect_left(starts, e.time_range.end)
+                 - bisect.bisect_left(starts, e.time_range.start))
+            out[e.name[4:]] = out.get(e.name[4:], 0) + n
+    return out
+
+
 def profile_search(search, top=10):
     """One more search (`search()`) under torch.profiler: device time by op
     (self time, ms), the summed device time and calls of each of the port's
     kernels by source (`kernel_sums`) and by `ops` wrapper (each wrapper
-    call runs in a `record_function` range named after it, and a range's
-    device time is that of the kernels launched in it), and the device's
+    call runs in a `record_function` range named after it: a range's
+    device time is that of the kernels linked to it, its device ops the
+    runtime launches inside it, `range_launches`), and the device's
     busy share of the search's wall time. Not part of the paths' launch
     counts (read before this runs)."""
     import torch
@@ -600,7 +702,7 @@ def profile_search(search, top=10):
             wrappers[evt.key[4:]] = dict(
                 device_ms=getattr(evt, "device_time_total",
                                   getattr(evt, "cuda_time_total", 0)) / 1e3,
-                calls=evt.count)
+                calls=evt.count, device_ops=0)
             continue
         if "CUDA" not in str(getattr(evt, "device_type", "")):
             continue                      # host ops; kernels are listed alone
@@ -608,6 +710,9 @@ def profile_search(search, top=10):
                          getattr(evt, "self_cuda_time_total", 0))
         if dev_us > 0:
             rows.append((evt.key, dev_us / 1e3, evt.count))
+    for name, n in range_launches(prof.events()).items():
+        if name in wrappers:
+            wrappers[name]["device_ops"] = n
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     return dict(wall_s=wall, device_busy_ms=busy_ms,
@@ -678,19 +783,34 @@ def push_bound(args):
     return nbytes, int(live.sum()), sector
 
 
-def bound(name, args):
+def frontier_bound(flags, deg, packed=False):
+    """(bytes, ops) a packing call needs: every flag byte; of the degrees,
+    each 32-byte sector (at its place in memory) that holds the degree of
+    a flag set in some lane; the bitmap if `packed`; nf and mf. One test a
+    flag."""
+    import torch
+    b, v = flags.shape
+    first = deg.data_ptr() % 32 // 4               # deg[0]'s slot in a sector
+    on = torch.cat([torch.zeros(first, dtype=torch.bool, device=deg.device),
+                    (flags != 0).any(dim=0)])
+    on = torch.cat([on, on.new_zeros((-on.numel()) % 8)])
+    sectors = int(on.view(-1, 8).any(dim=1).sum())
+    out = b * ((v + 31) // 32) * 4 if packed else 0
+    return b * v + 32 * sectors + out + 8 * b, b * v
+
+
+def bound(name, args, packed=False):
     """(bytes, ops) this call needs: each input byte it must read once,
     each output byte written once; data-dependent reads counted for these
-    inputs (slots up to the first hit, live slots only)."""
+    inputs (slots up to the first hit, live slots only; for a packing
+    kernel the degree sectors its flags name, and the bitmap with
+    `packed`)."""
     import torch
     args = as_batch(name, args)
     if name in PUSH:
         return push_bound(args)[:2]
     if name.startswith("frontier_fused"):
-        flags, deg = args
-        b, v = flags.shape
-        flagged = int((flags != 0).any(dim=0).sum())
-        return b * v + 4 * flagged + b * ((v + 31) // 32) * 4 + 8 * b, b * v
+        return frontier_bound(*args, packed=packed)
     deg, nbrs, table = args
     b, r = deg.shape
     w = nbrs.shape[1]
@@ -745,27 +865,30 @@ def timed_call(picked, name):
 
 
 def launch_plan(name):
-    """The plan of a pull kernel's last launch (empty for the others, and
-    for a tree whose pull kernels record none)."""
-    from repro_torch.kernels import bottomup
+    """The plan of a pull or packing kernel's last launch (empty for the
+    others, and for a tree whose kernels record none)."""
+    from repro_torch.kernels import bottomup, frontier_fused
+    if name.startswith("frontier_fused"):
+        return dict(getattr(frontier_fused, "LAST_PLAN", {}))
     if name.removesuffix("_batch") not in ("bottomup", "hub_bottomup"):
         return {}
     return dict(getattr(bottomup, "LAST_PLAN", {}))
 
 
-def kernel_fn(name, args):
+def kernel_fn(name, args, packed=False):
     """A call of kernel `name`'s launcher alone on a captured call's inputs,
-    as `ops` hands them over (a lane axis of 1 for a single-lane kernel, V
-    padded to whole words for a packing kernel)."""
-    from repro_torch.kernels import bottomup, frontier_fused, hub, ops, topdown
+    as `ops` hands them over (a lane axis of 1 for a single-lane kernel; a
+    packing kernel without the bitmap, as the paths call it, unless
+    `packed`)."""
+    from repro_torch.kernels import bottomup, frontier_fused, hub, topdown
     if name == "topdown":
         deg, nbrs, table = args
         dc = deg.contiguous()
         return lambda: topdown.topdown_cuda(dc, nbrs, table)
     if name.startswith("frontier_fused"):
         flags, deg = as_batch(name, args)
-        fp, dp = ops.pad_words(flags), ops.pad_words(deg)
-        return lambda: frontier_fused.frontier_fused_batch_cuda(fp, dp)
+        return lambda: frontier_fused.frontier_fused_batch_cuda(
+            flags, deg, packed=packed)
     deg, nbrs, table = as_batch(name, args)
     dc = deg.contiguous()
     launch = {"bottomup": bottomup.bottomup_batch_cuda,
@@ -793,15 +916,17 @@ def parent_route(deg, nbrs, rows, visited, pcand, keep):
 
 def time_kernel(name, args, reps, flush):
     """(kernel ms, plain ms, route ms) for one captured call: the launcher
-    alone (`kernel_fn`), the plain version on the call's own inputs; for
+    alone (`kernel_fn`), the plain version on the call's own inputs (a
+    packing kernel's both without the bitmap, as the paths call them); for
     the push, each from a `pcand` of INT_MAX (refilled before every run,
     outside the timing), and the parent's route (`parent_route`) on the
     same call, which must give the push's bits; None for the others."""
     import torch
     plain = plain_fn(name)
+    kw = dict(packed=False) if name.startswith("frontier_fused") else {}
     if name not in PUSH:
         return (time_ms(kernel_fn(name, args), reps, flush),
-                time_ms(lambda: plain(*args), reps, flush), None)
+                time_ms(lambda: plain(*args, **kw), reps, flush), None)
     from repro_torch.kernels import topdown
     deg, nbrs, rows, vis, pc, keep = as_batch(name, args)
     deg = deg.contiguous()
@@ -819,6 +944,36 @@ def time_kernel(name, args, reps, flush):
         else:
             assert equal(work, pushed), f"{fn.__name__} != the push"
     return tuple(out)
+
+
+def frontier_times(name, cargs, flagged, flush, floor_ms):
+    """A packing kernel's extra numbers: on phase 5's call (`cargs`) the
+    kernel with the bitmap and its bound; on the call with the most set
+    flags (`flagged`: level, args) the kernel with and without the bitmap,
+    the plain version without, the bounds and the launch plan; the launch
+    floor beside them."""
+    from repro_torch.kernels import frontier_fused
+    plain = plain_fn(name)
+    out = dict(ms_packed=time_ms(kernel_fn(name, cargs, packed=True),
+                                 TIMING_REPS, flush),
+               bound_ms_packed=bound(name, cargs, packed=True)[0]
+               / HBM_BYTES_PER_S * 1e3,
+               flags_set=int((cargs[0] != 0).sum()), floor_ms=floor_ms)
+    lvl, fargs = flagged
+    most = dict(level=lvl, flags_set=int((fargs[0] != 0).sum()),
+                shapes=[list(a.shape) for a in fargs])
+    for key, packed in (("ms", False), ("ms_packed", True)):
+        most[key] = time_ms(kernel_fn(name, fargs, packed=packed),
+                            TIMING_REPS, flush)
+        most["plan"] = dict(frontier_fused.LAST_PLAN)
+        nbytes, nops = bound(name, fargs, packed=packed)
+        most["bound_ms" + key[2:]] = max(
+            nbytes / HBM_BYTES_PER_S, nops / CUDA_CORE_OPS_PER_S) * 1e3
+        most["bytes" + key[2:]] = nbytes
+    most["plain_ms"] = time_ms(lambda: plain(*fargs, packed=False),
+                               TIMING_REPS, flush)
+    out["most_flags"] = most
+    return out
 
 
 def trees_ok(check, *results):
@@ -1114,8 +1269,16 @@ def bfs_paths(args, rng, dev, record, errs):
     picked = pick_calls(calls)
     n_checked = 0
     fresh_of_push = {push: fresh for fresh, push in FRESH_OF.items()}
+    flagged = {n: flag_call(calls, n) for n in BFS_KERNELS
+               if n.startswith("frontier_fused")}
     for name, mine in picked.items():
-        for _, _, _, cargs in mine:
+        for _, _, _, cargs in mine + ([(None, None, None, flagged[name][1])]
+                                      if name in flagged else []):
+            if name in flagged:
+                for packed in (True, False):
+                    kernel_vs_plain(name, cargs, errs, packed=packed)
+                n_checked += 2
+                continue
             if name not in PUSH:
                 kernel_vs_plain(name, cargs, errs)
                 n_checked += 1
@@ -1138,11 +1301,16 @@ def bfs_paths(args, rng, dev, record, errs):
 
     # 5. kernel times at the captured full-size shapes
     flush = torch.empty(1 << 27, dtype=torch.uint8, device=dev)
+    floor_ms = time_ms(lambda: torch.cuda._sleep(0), TIMING_REPS, flush)
+    record["launch_floor_ms"] = floor_ms
+    log(f"phase 5: launch floor (torch.cuda._sleep(0), a one-thread kernel "
+        f"that returns at once, timed as the kernels are): {floor_ms:.4f} ms")
     entries = []
     for name, (source, replaces) in BFS_KERNELS.items():
         lvl, cargs = timed_call(picked, name)
         ms, plain_ms, route_ms = time_kernel(name, cargs, TIMING_REPS,
                                              flush)
+        plan = launch_plan(name)
         nbytes, nops = bound(name, cargs)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / CUDA_CORE_OPS_PER_S * 1e3
@@ -1163,8 +1331,22 @@ def bfs_paths(args, rng, dev, record, errs):
                          sector_bound_ms=sector / HBM_BYTES_PER_S * 1e3)
             extra = (f"; the parent's route {route_ms:.4f} ms; bound with a "
                      f"sector a gather {entry['sector_bound_ms']:.4f} ms")
+        if name in flagged:
+            entry.update(frontier_times(name, cargs, flagged[name], flush,
+                                        floor_ms))
+            extra = (f"; with the bitmap {entry['ms_packed']:.4f} ms (bound "
+                     f"{entry['bound_ms_packed']:.4f}); {entry['flags_set']} "
+                     f"flags set; at the call with the most flags ("
+                     f"{entry['most_flags']['flags_set']}, level "
+                     f"{entry['most_flags']['level']}) "
+                     f"{entry['most_flags']['ms']:.4f} ms, with the bitmap "
+                     f"{entry['most_flags']['ms_packed']:.4f}, plain "
+                     f"{entry['most_flags']['plain_ms']:.4f}, bound "
+                     f"{entry['most_flags']['bound_ms']:.4f} (with the bitmap "
+                     f"{entry['most_flags']['bound_ms_packed']:.4f}); launch "
+                     f"floor {floor_ms:.4f}; plan "
+                     f"{entry['most_flags']['plan']}")
         entries.append(entry)
-        plan = launch_plan(name)
         record.setdefault("timed_calls", []).append(dict(
             name=name, level=lvl,
             shapes=[None if a is None else list(a.shape) for a in cargs],
@@ -1184,13 +1366,19 @@ def bfs_paths(args, rng, dev, record, errs):
              lambda: engine.bfs(roots[:1], backend="stepper"))):
         prof = profile_search(fn)
         record["profiles"][label] = prof
+        for n, w in prof["wrappers"].items():
+            if n in flagged:
+                assert w["device_ops"] <= w["calls"], \
+                    f"{label}: {n} launched {w['device_ops']} device ops in " \
+                    f"{w['calls']} calls"
         log(f"phase 5: profiled {label}: wall {prof['wall_s']:.3f} s, "
             f"device busy {prof['device_busy_ms']:.1f} ms (idle share "
             f"{prof['idle_share']:.3f}); the port's kernels: "
             + ", ".join(f"{src} {k['device_ms']:.3f} ms in {k['calls']} calls"
                         for src, k in sorted(prof["kernels"].items()))
             + "; by wrapper: "
-            + ", ".join(f"{n} {k['device_ms']:.3f} ms in {k['calls']} calls"
+            + ", ".join(f"{n} {k['device_ms']:.3f} ms in {k['calls']} calls, "
+                        f"{k['device_ops']} device ops"
                         for n, k in sorted(prof["wrappers"].items()))
             + "; top device time:")
         for row in prof["top"]:
@@ -1366,13 +1554,17 @@ def main() -> int:
     # 2. kernels against their plain versions, random inputs
     errs = {n: 0 for n in BFS_KERNELS}
     t0 = time.perf_counter()
-    n_cases = phase_kernels(rng, np.random.default_rng([args.seed, 1]),
-                            np.random.default_rng([args.seed, 5]), dev, errs)
+    n_cases, n_ff = phase_kernels(
+        rng, np.random.default_rng([args.seed, 1]),
+        np.random.default_rng([args.seed, 5]), dev, errs)
     log(f"phase 2: {n_cases} random cases per kernel, {len(HUB_CASES)} more "
         f"wide ones per hub kernel and push, {len(SKEWED_CASES)} skewed ones "
         f"per pull kernel and push, the push with keep off and on and on "
-        f"{CONTENTION[1]} rows into {CONTENTION[4]} vertices, bitwise equal "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"{CONTENTION[1]} rows into {CONTENTION[4]} vertices, {n_ff} more "
+        f"per packing kernel with the bitmap and without (B up to 40, V not "
+        f"a multiple of 32, rows starting one byte in, all flags set at V = "
+        f"{FRONTIER_WIDE}, nf/mf at the int32 limit and past it), bitwise "
+        f"equal ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     n_dec, dec_err, cap_gap = phase_decode_kernel(
         np.random.default_rng([args.seed, 2]), dev)

@@ -1,7 +1,7 @@
 """Time the BFS paths of one or more checkouts of this repo on one GPU, in
 turns, on Graph500 RMAT: each run's seconds, TEPS and per-level seconds,
-the top-down route on one captured call, and a profile of a search on each
-path.
+the top-down route on one captured call, the packing kernels on two, and a
+profile of a search on each path.
 
     python3 scripts/time_bfs.py build/parent . . build/parent
 
@@ -25,10 +25,21 @@ loads it and, with `chip_smoke.py`'s code from this checkout:
    the checkout has it, each from a `pcand` of INT_MAX (`time_ms`: median
    of 20, cold L2, queued behind a device sleep); a digest of the call's
    (deg, nbrs, visited) shows that every run timed the same call;
-3. profiles one search on each path (unsplit batch of 8, split batch of
+3. times the packing kernels (`frontier_fused_batch`, `frontier_fused`)
+   on `chip_smoke.py` phase 5's call (`pick_calls`, `timed_call`) and on
+   the call with the most set flags (`flag_call`), with a digest of the
+   flags and degrees: the launcher as `ops` calls it, the launch floor
+   (`torch.cuda._sleep(0)`, a one-thread kernel that returns at once), the
+   bounds with the bitmap and without (`chip_smoke.frontier_bound`); in a
+   checkout whose launcher zero-fills nf and mf (before the `packed`
+   keyword), also the kernel launch alone (nf and mf zeroed outside the
+   timing) and the two fills alone; in one with the keyword, the launcher
+   with the bitmap and without;
+4. profiles one search on each path (unsplit batch of 8, split batch of
    8, stepper on 1 root): wall, device busy, idle share, the summed
    device time and calls of each of the port's kernels by source and by
-   `ops` wrapper, and the top device ops.
+   `ops` wrapper (with the device ops launched in each wrapper's calls),
+   and the top device ops.
 
 One JSON line per run. Needs a CUDA device; exits 2 without one.
 """
@@ -110,6 +121,64 @@ def route_times(cs, calls, ell, flush) -> dict:
     return out
 
 
+def frontier_times(cs, calls, flush) -> dict:
+    """The packing kernels of this checkout on two captured calls each (see
+    the module's docstring, item 3)."""
+    import inspect
+    import torch
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import frontier_fused as ff
+    keyword = "packed" in inspect.signature(
+        ff.frontier_fused_batch_cuda).parameters
+
+    def t(fn, setup=None):
+        return cs.time_ms(fn, cs.TIMING_REPS, flush, setup)
+    out = dict(floor_ms=t(lambda: torch.cuda._sleep(0)))
+    picked = cs.pick_calls(calls)
+    for name in ("frontier_fused_batch", "frontier_fused"):
+        for which, (lvl, cargs) in (
+                ("phase 5", cs.timed_call(picked, name)),
+                ("most flags", cs.flag_call(calls, name))):
+            flags, deg = cs.as_batch(name, cargs)
+            b, v = flags.shape
+            dev = flags.device
+            row = dict(level=lvl, shape=[b, v],
+                       flags_set=int((flags != 0).sum()),
+                       digest=digest((flags, deg)),
+                       bound_ms=cs.frontier_bound(flags, deg)[0]
+                       / cs.HBM_BYTES_PER_S * 1e3,
+                       bound_ms_packed=cs.frontier_bound(
+                           flags, deg, packed=True)[0]
+                       / cs.HBM_BYTES_PER_S * 1e3)
+            if keyword:
+                for key, packed in (("launcher_ms", True),
+                                    ("launcher_nopack_ms", False)):
+                    row[key] = t(lambda: ff.frontier_fused_batch_cuda(
+                        flags, deg, packed=packed))
+            else:
+                fp, dp = ops.pad_words(flags), ops.pad_words(deg)
+                row["launcher_ms"] = t(
+                    lambda: ff.frontier_fused_batch_cuda(fp, dp))
+                words = torch.empty((b, fp.shape[1] // 32),
+                                    dtype=torch.uint32, device=dev)
+                nf = torch.empty(b, dtype=torch.int32, device=dev)
+                mf = torch.empty(b, dtype=torch.int32, device=dev)
+                stream = torch.cuda.current_stream(dev).cuda_stream
+
+                def zero():
+                    nf.zero_()
+                    mf.zero_()
+                row["kernel_ms"] = t(lambda: _build.launch(
+                    "frontier_fused", fp.data_ptr(), dp.data_ptr(),
+                    words.data_ptr(), nf.data_ptr(), mf.data_ptr(), b,
+                    fp.shape[1], device=dev.index, stream=stream), zero)
+                row["fills_ms"] = t(lambda: (
+                    torch.zeros(b, dtype=torch.int32, device=dev),
+                    torch.zeros(b, dtype=torch.int32, device=dev)))
+            out[f"{name} @ {which}"] = row
+    return out
+
+
 def child(tree: str, graph: str, seed: int) -> None:
     import torch
     sys.path.insert(0, ROOT)
@@ -166,6 +235,7 @@ def child(tree: str, graph: str, seed: int) -> None:
     level_loop.LevelDriver.run = real_run
     flush = torch.empty(1 << 27, dtype=torch.uint8, device=dev)
     row["route"] = route_times(cs, calls, ell, flush)
+    row["frontier"] = frontier_times(cs, calls, flush)
     del flush, calls
     row["profiles"] = {}
     for label, fn in (

@@ -260,7 +260,7 @@ def _advance(dg: DeviceGraph, cfg: BFSConfig, ell, st: BFSState,
     bu_t, bu_steps = _decide_direction(dg, cfg, st)
     step = _bottomup_step_kernels if bu else _topdown_step_kernels
     next_flags, parent = step(dg, cfg, ell, st)
-    _, nf, mf = K.frontier_fused(next_flags, dg.deg_ext[:-1])
+    _, nf, mf = K.frontier_fused(next_flags, dg.deg_ext[:-1], packed=False)
     cur = st.cur_level + 1
     return BFSState(torch.maximum(st.visited, next_flags), next_flags, parent,
                     torch.where(next_flags != 0, cur, st.level), cur,
@@ -569,7 +569,8 @@ def _advance_batch(dg: DeviceGraph, cfg: BFSConfig, ell, split, variant: str,
             dg, cfg, tiles, st.frontier, st.visited, parent, lanes,
             hub_kernel=hub)
         next_flags = torch.maximum(next_flags, flags)
-    _, nf, mf = K.frontier_fused_batch(next_flags, dg.deg_ext[:-1])
+    _, nf, mf = K.frontier_fused_batch(next_flags, dg.deg_ext[:-1],
+                                       packed=False)
     cur = st.cur_level + 1
     visited = torch.maximum(st.visited, next_flags)
     level = torch.where(next_flags != 0, cur, st.level)

@@ -45,7 +45,10 @@ ENTRY_POINTS = {
     "decode_attn_resident": ("repro_decode_attention_resident",
                              [_I64, _I64, _I, _P, _I]),
     "frontier_fused": ("repro_frontier_fused_batch",
-                       [_P, _P, _P, _P, _P, _I64, _I64, _I, _P]),
+                       [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I64,
+                        _I, _P]),
+    "frontier_fused_resident": ("repro_frontier_fused_resident",
+                                [_I, _I, _P, _I]),
     "topdown": ("repro_topdown_batch",
                 [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _P]),
     "topdown_push": ("repro_topdown_push",
@@ -53,7 +56,8 @@ ENTRY_POINTS = {
                       _P]),
 }
 LIBRARY = {"decode_attn_resident": "decode_attn",
-           "bottomup_resident": "bottomup", "topdown_push": "topdown"}
+           "bottomup_resident": "bottomup", "topdown_push": "topdown",
+           "frontier_fused_resident": "frontier_fused"}
 
 _lock = threading.RLock()      # build_all and first loads
 _functions: dict = {}

@@ -10,9 +10,10 @@ fallback from one to the other. A single-lane kernel is a launch of its
 batched kernel with B = 1, on views of the caller's tensors.
 
 The JAX wrappers pad rows to the Pallas block (and hub tiles to 128
-columns) and slice them back off; the CUDA kernels take any shape, so
-nothing is padded here but V, to whole 32-flag words, for the packing
-kernel (the decode attention's cache length S is not padded either).
+columns, V to whole blocks of flag words) and slice them back off; the
+CUDA kernels take any shape, so nothing is padded here (the packing
+kernel takes any V and any row start, the decode attention any cache
+length S).
 
 `LAUNCHES` counts kernel launches per wrapper; only a launch adds to it.
 
@@ -23,7 +24,6 @@ the CUDA kernels gather from device memory through L2.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import bottomup as _bu
 from repro_torch.kernels import frontier_fused as _ff
@@ -40,13 +40,6 @@ LAUNCHES = {"bottomup_batch": 0, "topdown_batch": 0,
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def pad_words(x: torch.Tensor) -> torch.Tensor:
-    """`x` padded with zeros along its last axis to a multiple of 32, as a
-    contiguous tensor (the packing kernel's input layout)."""
-    pad = (-x.shape[-1]) % 32
-    return (F.pad(x, (0, pad)) if pad else x).contiguous()
 
 
 def _no_rows(b: int, device):
@@ -131,17 +124,20 @@ def topdown_push_batch(deg, nbrs, rows, visited, pcand, keep=None) -> None:
     LAUNCHES["topdown_push_batch"] += 1
 
 
-def frontier_fused_batch(flags, deg):
+def frontier_fused_batch(flags, deg, *, packed=True):
     """Batched fused pack + count + edge mass:
-    (packed uint32[B, ceil(V/32)], nf int32[B], mf int32[B])."""
+    (packed uint32[B, ceil(V/32)], nf int32[B], mf int32[B]) for `flags`
+    uint8[B, V] (rows contiguous, any V, any start) and `deg` int32[V].
+    `packed=False` skips the bitmap and returns None in its place."""
     b, v = flags.shape
     if v == 0 or b == 0:
-        return (torch.zeros((b, 0), dtype=torch.uint32, device=flags.device),
+        return ((torch.zeros((b, 0), dtype=torch.uint32, device=flags.device)
+                 if packed else None),
                 torch.zeros(b, dtype=torch.int32, device=flags.device),
                 torch.zeros(b, dtype=torch.int32, device=flags.device))
     if not flags.is_cuda:
-        return _ff.frontier_fused_batch_plain(flags, deg)
-    out = _ff.frontier_fused_batch_cuda(pad_words(flags), pad_words(deg))
+        return _ff.frontier_fused_batch_plain(flags, deg, packed=packed)
+    out = _ff.frontier_fused_batch_cuda(flags, deg, packed=packed)
     LAUNCHES["frontier_fused_batch"] += 1
     return out
 
@@ -204,19 +200,21 @@ def topdown_push(deg, nbrs, rows, visited, pcand, keep=None) -> None:
     LAUNCHES["topdown_push"] += 1
 
 
-def frontier_fused(flags, deg):
+def frontier_fused(flags, deg, *, packed=True):
     """Fused pack + count + edge mass of one lane: (packed
-    uint32[ceil(V/32)], nf int32, mf int32), the counts 0-dim."""
+    uint32[ceil(V/32)], nf int32, mf int32), the counts 0-dim; the bitmap
+    None with `packed=False`."""
     v = flags.shape[0]
     if v == 0:
         z = torch.zeros((), dtype=torch.int32, device=flags.device)
-        return torch.zeros(0, dtype=torch.uint32, device=flags.device), z, z
+        return ((torch.zeros(0, dtype=torch.uint32, device=flags.device)
+                 if packed else None), z, z)
     if not flags.is_cuda:
-        return _ff.frontier_fused_plain(flags, deg)
-    packed, nf, mf = _ff.frontier_fused_batch_cuda(pad_words(flags[None]),
-                                                   pad_words(deg))
+        return _ff.frontier_fused_plain(flags, deg, packed=packed)
+    bitmap, nf, mf = _ff.frontier_fused_batch_cuda(flags[None], deg,
+                                                   packed=packed)
     LAUNCHES["frontier_fused"] += 1
-    return packed[0], nf[0], mf[0]
+    return (None if bitmap is None else bitmap[0]), nf[0], mf[0]
 
 
 # ------------------------------------------------------------ LLM serving --

@@ -140,38 +140,6 @@ def test_topdown_batch_matches_pallas(b, r, w, v, masked, slab):
     _eq(f1, f2)
 
 
-@pytest.mark.parametrize("b,v", [(1, 37), (8, 257), (3, 8192), (2, 10000)])
-def test_frontier_fused_batch_matches_pallas(b, v):
-    rng = np.random.default_rng(v)
-    flags = (rng.random((b, v)) < 0.3).astype(np.uint8)
-    flags[-1] = 0                                   # an empty lane
-    deg = rng.integers(0, 5000, v).astype(np.int32)
-    pk1, nf1, mf1 = ops.frontier_fused_batch(torch.from_numpy(flags),
-                                             torch.from_numpy(deg))
-    pk2, nf2, mf2 = jops.frontier_fused_batch(jnp.asarray(flags),
-                                              jnp.asarray(deg),
-                                              interpret=True)
-    _eq(pk1, pk2)
-    _eq(nf1, nf2)
-    _eq(mf1, mf2)
-
-
-def test_frontier_fused_mf_near_int32_limit():
-    """Degrees summing to 2^31 - 1 per lane: int32 exactly at the top."""
-    v = 4096
-    deg = np.full(v, (2**31 - 1) // v, np.int32)
-    deg[0] += (2**31 - 1) - int(deg.astype(np.int64).sum())
-    flags = np.ones((2, v), np.uint8)
-    flags[1, 0] = 0
-    _, nf1, mf1 = ops.frontier_fused_batch(torch.from_numpy(flags),
-                                           torch.from_numpy(deg))
-    _, nf2, mf2 = jops.frontier_fused_batch(jnp.asarray(flags),
-                                            jnp.asarray(deg), interpret=True)
-    assert mf1.tolist()[0] == 2**31 - 1
-    _eq(nf1, nf2)
-    _eq(mf1, mf2)
-
-
 def test_empty_tiles_return_empty_outputs():
     z = torch.zeros
     for b, r in ((0, 5), (3, 0), (0, 0)):
@@ -273,6 +241,25 @@ def test_concurrent_builds_run_one_compiler_per_source(monkeypatch, tmp_path):
         assert _build.library_path(n).read_text() == "built\n"
 
 
+def _frontier_vs_plain(flags, deg):
+    """The packing kernel against its plain version, both stores, batched
+    and on lane 0, bitwise (the bitmap as int32)."""
+    for packed in (True, False):
+        for got, want in (
+                (ops.frontier_fused_batch(flags, deg, packed=packed),
+                 tff.frontier_fused_batch_plain(flags, deg, packed=packed)),
+                (ops.frontier_fused(flags[0], deg, packed=packed),
+                 tff.frontier_fused_plain(flags[0], deg, packed=packed))):
+            for x, y in zip(got, want):
+                if x is None or y is None:
+                    assert x is None and y is None and not packed
+                    continue
+                if x.dtype == torch.uint32:
+                    x, y = x.view(torch.int32), y.view(torch.int32)
+                assert x.shape == y.shape and torch.equal(x, y), \
+                    (tuple(flags.shape), flags.stride(), packed)
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_cuda():
     """On a card: every kernel against its plain version, bitwise, through
@@ -324,6 +311,28 @@ def test_kernels_match_plain_on_cuda():
                 assert x.shape == y.shape and torch.equal(x, y)
         assert all(ops.LAUNCHES[k] == n[k] + 1 for k in n
                    if k != "decode_attention")
+    # the packing kernel with the bitmap and without, batched and on lane
+    # 0: ragged V, B up to 40 with an empty last lane, rows that start one
+    # byte in (flags[:, 1:]) with degrees one int32 in, all flags set, and
+    # mf at the int32 limit and one past it
+    rng = np.random.default_rng(7)
+    for b in (1, 3, 8, 16, 40):
+        for v in (1, 31, 37, 4096, 10000):
+            wide = (rng.random((b, v + 1)) < 0.3).astype(np.uint8)
+            wide[b - 1] = 0
+            wide = torch.from_numpy(wide).to(dev)
+            vd = torch.from_numpy(
+                rng.integers(0, 5000, v + 1).astype(np.int32)).to(dev)
+            for flags, d in ((wide[:, :v].contiguous(), vd[:v]),
+                             (wide[:, 1:], vd[1:]),
+                             (torch.ones_like(wide[:, :v]), vd[:v])):
+                _frontier_vs_plain(flags, d)
+    for total in (2**31 - 1, 2**31):
+        d = np.full(4096, total // 4096, np.int64)
+        d[0] += total - int(d.sum())
+        _frontier_vs_plain(
+            torch.ones((2, 4096), dtype=torch.uint8, device=dev),
+            torch.from_numpy(d.astype(np.int32)).to(dev))
     # the first-hit cases, through both pull kernels and their one-lane
     # launches
     for case in FIRST_HIT_CASES:
