@@ -60,6 +60,25 @@ a nonzero exit; nothing is caught):
    on each path, with the summed device time and calls of each of the
    port's kernels in it and the device ops each wrapper launched (one a
    packing call: no fill).
+5s. The partitioned BSP search (`Engine.bfs` with n_parts > 1) on gloo
+   ranks that share the card (`repro_torch.parallel.ranks`; NCCL refuses
+   two ranks on one GPU), after the BFS tensors are freed; each rank loads
+   the graph from a temporary .npz the parent writes. Parity on the
+   phase-3 graph: P = 2 and P = 4 ranks each run every case (the three
+   strategies at the defaults, then the bitmap exchange, the global
+   coordinator and beamer, each as `sharded` and as `stepper`) on a CUDA
+   session and on a CPU session over the same group: trees and rows
+   equal; rank 0 validates the default case's trees. Full size on the
+   --scale graph: P = 4, specialized, 4 roots `sharded` (Graph500 mode), 2
+   `stepper` and 1 `stepper` with the bitmap exchange; each rank's launch
+   counts are zeroed just before and read just after, and `bottomup`,
+   `topdown_push` and `frontier_fused` must each have launched. Rank 0
+   holds the trees against the Graph500 check and its captured calls of
+   the three kernels against their plain versions bitwise, and times them
+   at their largest call. Printed: per-root seconds and TEPS, per-level
+   compute_s / exchange_s for psum and bitmap, agg_s, the bytes a level on
+   the wire, the group's backend. The times are of P ranks sharing one
+   card over gloo, not of a multi-GPU run.
 6. The serving path at gemma2-9b's full width (42 layers, bf16, random
    weights from --seed), after the BFS phases' tensors are freed:
    `launch.serve.serve` (what `main` runs) with batch 4, a 4,200-token
@@ -1182,8 +1201,9 @@ def profile_decode_step(step):
 
 
 def bfs_paths(args, rng, dev, record, errs):
-    """Phases 4, 2b and 5: the BFS paths on Graph500 RMAT at --scale; the
-    kernels line's entries of the ten BFS kernel entries."""
+    """Phases 4, 2b and 5: the BFS paths on Graph500 RMAT at --scale.
+    Returns the kernels line's entries of the ten BFS kernel entries and
+    the graph (host arrays only)."""
     import torch
     from repro_torch.core import graph as G
     from repro_torch.engine import Engine
@@ -1384,7 +1404,273 @@ def bfs_paths(args, rng, dev, record, errs):
         for row in prof["top"]:
             log(f"    {row['device_ms']:10.2f} ms {row['calls']:6d}x "
                 f"{row['op']}")
-    return entries
+    return entries, g
+
+
+# -------------------------------------------------------------- sharded --
+
+SHARDED_PARTS = (2, 4)            # phase 5s parity: ranks at PARITY_SCALE
+SHARDED_FULL = (4, "specialized")  # phase 5s at full size: ranks, strategy
+SHARDED_KERNELS = ("bottomup", "topdown_push", "frontier_fused")
+SHARDED_NOTE = ("P ranks time-share one H100 and exchange through gloo "
+                "(host memory); not a multi-GPU figure")
+RANK_TIMEOUT = 900                # seconds a spawn of ranks may take
+
+
+def save_graph(g, path):
+    np.savez(path, v=g.num_vertices, indptr=g.indptr, indices=g.indices,
+             degrees=g.degrees)
+
+
+def load_graph(path):
+    from repro_torch.interop import graph_from_arrays
+    with np.load(path) as z:
+        return graph_from_arrays(int(z["v"]), z["indptr"], z["indices"],
+                                 z["degrees"])
+
+
+def sharded_cases():
+    """(label, strategy, HybridConfig): each strategy at the defaults, then
+    the bitmap exchange, the global coordinator and beamer."""
+    from repro_torch.core.bfs import BFSConfig
+    from repro_torch.core.hybrid_bfs import HybridConfig
+    cases = [(s, s, HybridConfig()) for s in ("random", "hub0", "specialized")]
+    return cases + [
+        ("specialized bitmap", "specialized", HybridConfig(exchange="bitmap")),
+        ("specialized global", "specialized",
+         HybridConfig(coordinator="global")),
+        ("specialized beamer", "specialized",
+         HybridConfig(bfs=BFSConfig(heuristic="beamer")))]
+
+
+def sharded_parity_rank(rank, group, device, graph_path, roots):
+    """Phase 5s parity on one rank: every case through `Engine.bfs` as
+    `sharded` and as `stepper`, once on a CUDA session (the kernels) and
+    once on a CPU session (the plain versions), over the same group;
+    trees and rows must be equal. Rank 0 validates the default case's
+    trees with `ref.validate_parents`."""
+    import torch.distributed as dist
+    from repro_torch.core import ref
+    from repro_torch.engine import Engine
+    g = load_graph(graph_path)
+    n = dist.get_world_size(group)
+    gpu, cpu = Engine(g, device=device), Engine(g, device="cpu")
+    out = []
+    for label, strategy, hcfg in sharded_cases():
+        for backend in ("sharded", "stepper"):
+            what = f"P={n} {label} {backend}"
+            a = gpu.bfs(roots, hcfg, backend=backend, n_parts=n,
+                        strategy=strategy)
+            b = cpu.bfs(roots, hcfg, backend=backend, n_parts=n,
+                        strategy=strategy)
+            same_trees(a, b, what)
+            assert (a.backend, a.n_parts) == (backend, n), what
+            if backend == "stepper":
+                assert stepper_rows(a) == stepper_rows(b), f"{what}: rows"
+                out.append(dict(case=what, directions=[
+                    r[1] for r in stepper_rows(a)[0]]))
+            if rank == 0 and label == "specialized":
+                for i, r in enumerate(roots):
+                    ref.validate_parents(g, int(r), b.parent[i], b.level[i])
+    return out
+
+
+def sharded_full_rank(rank, group, device, graph_path, roots):
+    """Phase 5s at full size on one rank: `Engine.bfs` over the partitioned
+    graph (4 roots `sharded` in Graph500 mode, 2 `stepper` with the psum
+    exchange, 1 with the bitmap), launch counts zeroed just before and read
+    just after. Rank 0 also holds the trees against the Graph500 check,
+    every sharded kernel's captured calls (the level with the most live
+    rows) against their plain versions, and times them."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.hybrid_bfs import HybridConfig
+    from repro_torch.engine import Engine
+    from repro_torch.engine.level_loop import fence
+    from repro_torch.kernels import ops
+    n, strategy = SHARDED_FULL
+    assert dist.get_world_size(group) == n
+    t0 = time.perf_counter()
+    g = load_graph(graph_path)
+    eng = Engine(g, device=device, default_strategy=strategy)
+    plan, pg = eng.session.partitioned(n)
+    ell = eng.session.hybrid_ell(n)
+    fence(device)
+    out = dict(rank=rank, setup_s=time.perf_counter() - t0,
+               backend=str(dist.get_backend(group)), v_pad=plan.v_pad,
+               hub_count=plan.hub_count, local_rows=pg.num_local_rows,
+               buckets=[list(b.nbrs.shape) for b in ell],
+               padding_rows=sum(int((b.rows == plan.v_pad).sum())
+                                for b in ell))
+    if rank == 0:
+        calls, path, restore = install_capture()
+        path[0] = "sharded"
+    dist.barrier(group)
+    ops.reset_launches()
+    t1 = time.perf_counter()
+    sharded = eng.bfs(roots[:4], backend="sharded", n_parts=n,
+                      batched=False)
+    stepper = eng.bfs(roots[4:6], backend="stepper", n_parts=n)
+    bitmap = eng.bfs(roots[6:7], HybridConfig(exchange="bitmap"),
+                     backend="stepper", n_parts=n)
+    out["wall_s"] = time.perf_counter() - t1
+    out["launches"] = {k: c for k, c in ops.LAUNCHES.items() if c}
+    for k in SHARDED_KERNELS:
+        assert ops.LAUNCHES[k] > 0, f"rank {rank}: {k} never launched"
+    out.update(
+        per_root_s=sharded.per_root_seconds.tolist(),
+        teps=sharded.teps_per_root.tolist(),
+        levels=[int(x) for x in sharded.num_levels],
+        stepper_per_root_s=stepper.per_root_seconds.tolist(),
+        bitmap_per_root_s=bitmap.per_root_seconds.tolist(),
+        stepper_teps=stepper.teps_per_root.tolist(),
+        psum_rows=[[dict(level=r["level"], direction=r["direction"],
+                         frontier_size=r["frontier_size"],
+                         compute_s=r["compute_s"], exchange_s=r["exchange_s"])
+                    for r in rows] for rows in stepper.per_level_stats],
+        bitmap_rows=[[dict(level=r["level"], direction=r["direction"],
+                           frontier_size=r["frontier_size"],
+                           compute_s=r["compute_s"],
+                           exchange_s=r["exchange_s"])
+                      for r in rows] for rows in bitmap.per_level_stats],
+        timings=stepper.timings + bitmap.timings)
+    if rank == 0:
+        restore()
+        check = Graph500Check(g, device)
+        out["trees"] = trees_ok(check, sharded, stepper, bitmap)
+        del check
+        out.update(sharded_kernel_checks(calls, device))
+        del calls
+    dist.barrier(group)
+    return out
+
+
+def sharded_kernel_checks(calls, device):
+    """Rank 0's captured sharded calls: each kernel of the level with the
+    most live rows against its plain version, bitwise (the push from
+    INT_MAX and from the level's final `pcand`; the packing kernel with the
+    bitmap and without, there and at the call with the most set flags),
+    then timed on its largest call beside its plain version and bound."""
+    import torch
+    picked = {k: v for k, v in pick_calls(calls).items()
+              if k in SHARDED_KERNELS}
+    flagged = flag_call(calls, "frontier_fused")[1]
+    errs = {k: 0 for k in SHARDED_KERNELS}
+    n_checked = 0
+    for name, mine in picked.items():
+        for _, _, _, cargs in mine:
+            if name == "frontier_fused":
+                for args in (cargs, flagged):
+                    for packed in (True, False):
+                        kernel_vs_plain(name, args, errs, packed=packed)
+                        n_checked += 1
+            elif name in PUSH:
+                deg, nbrs, rows, vis, pcand, keep = cargs
+                for start in (torch.full_like(pcand, INT_MAX), pcand):
+                    kernel_vs_plain(name, (deg, nbrs, rows, vis, start, keep),
+                                    errs)
+                    n_checked += 1
+            else:
+                kernel_vs_plain(name, cargs, errs)
+                n_checked += 1
+    torch.cuda.synchronize(device)
+    flush = torch.empty(1 << 27, dtype=torch.uint8, device=device)
+    times = {}
+    for name in SHARDED_KERNELS:
+        lvl, cargs = timed_call(picked, name)
+        ms, plain_ms, _ = time_kernel(name, cargs, TIMING_REPS, flush)
+        nbytes, nops = bound(name, cargs)
+        times[name] = dict(
+            level=lvl, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(nbytes / HBM_BYTES_PER_S, nops / CUDA_CORE_OPS_PER_S)
+            * 1e3, shapes=[None if a is None else list(a.shape)
+                           for a in cargs])
+    return dict(checked=n_checked, errs=errs, kernel_times=times,
+                levels_checked={k: v[0][1] for k, v in picked.items()})
+
+
+def sharded_phase(args, g16, g22, rng, record, entries):
+    """Phase 5s: the partitioned BSP search on gloo ranks that share the
+    card. Parity at PARITY_SCALE (P = 2 and 4, CUDA ranks against CPU
+    ranks), then the full-size run (P = 4, specialized); the sharded
+    kernels' counts, errors and times join their `entries`."""
+    import tempfile
+    from repro_torch.parallel import ranks
+    record["sharded"] = rec = dict(note=SHARDED_NOTE)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
+        path16 = os.path.join(tmp, "parity.npz")
+        save_graph(g16, path16)
+        roots16 = rng.choice(np.flatnonzero(g16.degrees > 0), 2,
+                             replace=False)
+        for p in SHARDED_PARTS:
+            t0 = time.perf_counter()
+            out = ranks.run_ranks(sharded_parity_rank, p, tmp,
+                                  args=(path16, roots16), backend="gloo",
+                                  timeout=RANK_TIMEOUT)
+            rec[f"parity_p{p}_s"] = time.perf_counter() - t0
+            rec[f"parity_p{p}"] = out[0]
+            log(f"phase 5s: scale-{PARITY_SCALE} parity, P = {p} gloo ranks "
+                f"on one card: {len(sharded_cases())} cases x (sharded, "
+                f"stepper) equal on cuda and cpu, trees and rows, every rank "
+                f"({rec[f'parity_p{p}_s']:.1f} s); stepper directions "
+                + "; ".join(f"{c['case']}: {''.join(d[0] for d in c['directions'])}"
+                            for c in out[0][:3]))
+        path22 = os.path.join(tmp, "full.npz")
+        t0 = time.perf_counter()
+        save_graph(g22, path22)
+        rec["save_s"] = time.perf_counter() - t0
+        roots22 = rng.choice(np.flatnonzero(g22.degrees > 0), 7,
+                             replace=False)
+        n, strategy = SHARDED_FULL
+        t0 = time.perf_counter()
+        outs = ranks.run_ranks(sharded_full_rank, n, tmp,
+                               args=(path22, roots22), backend="gloo",
+                               timeout=RANK_TIMEOUT)
+        rec["full_s"] = time.perf_counter() - t0
+    r0 = outs[0]
+    rec["full"] = outs
+    v_pad = r0["v_pad"]
+    wire = dict(psum=4 * v_pad, bitmap=4 * ((v_pad + 31) // 32))
+    rec["wire_bytes_per_level"] = wire
+    log(f"phase 5s: RMAT scale {args.scale}, P = {n} "
+        f"{strategy}, {r0['backend']} ranks: {SHARDED_NOTE}. v_pad {v_pad}, "
+        f"{r0['hub_count']} delegated hubs, {r0['local_rows']} rows a rank, "
+        f"setup (load, partition, tiles) {max(o['setup_s'] for o in outs):.1f}"
+        f" s, spawn to exit {rec['full_s']:.1f} s; rank 0's buckets "
+        f"{r0['buckets']} ({r0['padding_rows']} padding rows)")
+    log(f"  {r0['trees']} trees pass the Graph500 check; wire a level: psum "
+        f"{wire['psum']} bytes, bitmap {wire['bitmap']} bytes a rank")
+    for i, (s, t) in enumerate(zip(r0["per_root_s"], r0["teps"])):
+        log(f"  sharded root {i}: {s:.4f} s, {t / 1e9:.4f} GTEPS, "
+            f"{r0['levels'][i]} levels")
+    for label, key in (("psum", "psum_rows"), ("bitmap", "bitmap_rows")):
+        for i, rows in enumerate(r0[key]):
+            log(f"  stepper {label} root {i} (compute_s / exchange_s a "
+                f"level, ms): " + ", ".join(
+                    f"{r['direction']} {r['compute_s'] * 1e3:.2f}/"
+                    f"{r['exchange_s'] * 1e3:.2f}" for r in rows))
+    log("  agg_s (the min all-reduce, the copy and the mapping back): "
+        + ", ".join(f"{t['agg_s']:.4f}" for t in r0["timings"]))
+    log(f"  launches by rank: "
+        + "; ".join(f"rank {o['rank']} {o['launches']}" for o in outs))
+    log(f"  rank 0: {r0['checked']} captured sharded calls bitwise equal to "
+        f"the plain versions at levels {r0['levels_checked']}; at their "
+        f"largest call: " + ", ".join(
+            f"{k} {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, bound "
+            f"{t['bound_ms']:.4f}) at {t['shapes']}"
+            for k, t in r0["kernel_times"].items()))
+    for entry in entries:
+        name = entry["name"]
+        if name not in SHARDED_KERNELS:
+            continue
+        per_rank = [o["launches"].get(name, 0) for o in outs]
+        t = r0["kernel_times"][name]
+        entry.update(
+            launches=entry["launches"] + sum(per_rank),
+            sharded_launches=per_rank,
+            max_abs_err=max(entry["max_abs_err"], r0["errs"][name]),
+            sharded_ms=t["ms"], sharded_plain_ms=t["plain_ms"],
+            sharded_bound_ms=t["bound_ms"])
 
 
 def serve_phase(args, dev, record, dec_err):
@@ -1577,7 +1863,7 @@ def main() -> int:
 
     # 3. whole-search parity, GPU against CPU
     t0 = time.perf_counter()
-    phase_parity(PARITY_SCALE, rng)
+    g16 = phase_parity(PARITY_SCALE, rng)
     record["parity_s"] = time.perf_counter() - t0
     log(f"phase 3: scale-{PARITY_SCALE} searches equal on cuda and cpu "
         f"({record['parity_s']:.1f} s)")
@@ -1590,10 +1876,17 @@ def main() -> int:
         f"({time.perf_counter() - t0:.1f} s)")
 
     # 4, 2b, 5: the BFS paths at full size (their tensors are freed on
-    # return, before the serving path needs the card's memory)
-    entries = bfs_paths(args, rng, dev, record, errs)
+    # return, before the ranks and the serving path need the card's memory)
+    entries, g22 = bfs_paths(args, rng, dev, record, errs)
     gc.collect()
     torch.cuda.empty_cache()
+
+    # 5s. the partitioned BSP search on gloo ranks sharing the card
+    t0 = time.perf_counter()
+    sharded_phase(args, g16, g22, rng, record, entries)
+    record["sharded_s"] = time.perf_counter() - t0
+    log(f"phase 5s: {record['sharded_s']:.1f} s")
+    del g16, g22
 
     # 6. the serving path at full width
     entries.append(serve_phase(args, dev, record, dec_err))

@@ -8,9 +8,9 @@ keeps its CSR slot order, which is what makes first-hit parents equal to a
 CSR slab scan bit for bit.
 
 Built on the host (numpy) once per graph, then moved to a device;
-`GraphSession.ell_tiles` owns the cache (and `DeviceGraph` memoizes the
-tiles a one-shot `core.bfs.bfs()` builds). The layout equals the JAX
-package's `core/ell.py` array for array.
+`GraphSession.ell_tiles` and `GraphSession.hybrid_ell` own the cache (and
+`DeviceGraph` memoizes the tiles a one-shot `core.bfs.bfs()` builds). The
+layout equals the JAX package's `core/ell.py` array for array.
 """
 from __future__ import annotations
 
@@ -26,8 +26,11 @@ DEFAULT_GROWTH = 2     # geometric bucket-width growth factor
 class EllBucket(NamedTuple):
     """One degree class as a fixed-shape tile.
 
-    rows: int32[R] vertex ids (scatter targets).
-    deg:  int32[R] true row degrees (0 < deg <= nbrs.shape[1]).
+    rows: int32[R] vertex ids (scatter targets; global new ids on the
+      partitioned path, where padding rows carry the out-of-range id
+      `v_pad` and degree 0).
+    deg:  int32[R] true row degrees (0 < deg <= nbrs.shape[1] for real
+      rows).
     nbrs: int32[R, W] neighbour ids in CSR slot order, 0-padded past deg.
     """
     rows: torch.Tensor
@@ -123,11 +126,85 @@ def build_device_graph_ell(dg, *, base: int = DEFAULT_BASE,
                      base=base, growth=growth)
 
 
+def _hybrid_layout(pg, base: int, growth: int):
+    """(widths, per-partition degrees, padded rows per bucket) shared by
+    every partition, or None when no partition has an edge.
+
+    Bucket widths come from the global max local-row degree, and each
+    bucket's row count is the largest any partition has in it, so every
+    rank's tiles have the same shapes; the counts come from the degrees
+    alone, without building the other ranks' tiles.
+    """
+    per_dev_deg = np.diff(pg.local_indptr.astype(np.int64), axis=1)
+    max_deg = int(per_dev_deg.max()) if per_dev_deg.size else 0
+    if max_deg == 0:
+        return None
+    widths = bucket_widths(max_deg, base, growth)
+    counts = [np.bincount(np.searchsorted(widths, d[d > 0]),
+                          minlength=len(widths)) for d in per_dev_deg]
+    return widths, per_dev_deg.astype(np.int32), np.max(counts, axis=0)
+
+
+def _hybrid_rank_numpy(pg, rank: int, layout):
+    """Partition `rank`'s non-empty buckets as padded numpy triples:
+    padding rows have id `v_pad`, degree 0 and zero neighbours."""
+    widths, per_dev_deg, r_max = layout
+    v_pad = pg.plan.v_pad
+    out = []
+    for (rw, dg, nb), w, rm in zip(
+            _ell_numpy(pg.local_indptr[rank], pg.local_indices[rank],
+                       per_dev_deg[rank], pg.local_row_gid[rank], widths),
+            widths, r_max):
+        if rm == 0:
+            continue
+        rows = np.full(rm, v_pad, dtype=np.int32)
+        deg = np.zeros(rm, dtype=np.int32)
+        nbrs = np.zeros((rm, w), dtype=np.int32)
+        rows[:len(rw)] = rw
+        deg[:len(rw)] = dg
+        nbrs[:len(rw)] = nb
+        out.append((rows, deg, nbrs))
+    return out
+
+
+def build_hybrid_ell(pg, rank: int, *, device, base: int = DEFAULT_BASE,
+                     growth: int = DEFAULT_GROWTH) -> EllTiles:
+    """`PartitionedGraph` -> partition `rank`'s ELL buckets on `device`.
+
+    Every rank gets the same bucket count and tile shapes: bucket widths
+    come from the global max local-row degree, and each bucket's row count
+    is padded to the largest partition's with degree-0 rows whose id is
+    the out-of-range `v_pad` (the steps of `core.hybrid_bfs` drop them).
+    Columns are global new ids. `hybrid_ell_numpy` stacks every rank's.
+    """
+    layout = _hybrid_layout(pg, base, growth)
+    if layout is None:
+        return ()
+    return tuple(EllBucket(rows=torch.from_numpy(rows).to(device),
+                           deg=torch.from_numpy(deg).to(device),
+                           nbrs=torch.from_numpy(nbrs).to(device))
+                 for rows, deg, nbrs in _hybrid_rank_numpy(pg, rank, layout))
+
+
+def hybrid_ell_numpy(pg, *, base: int = DEFAULT_BASE,
+                     growth: int = DEFAULT_GROWTH) -> list:
+    """Every partition's buckets stacked on axis 0, as numpy triples
+    (rows int32[P, R], deg int32[P, R], nbrs int32[P, R, W]): the layout of
+    the JAX package's `build_hybrid_ell`."""
+    layout = _hybrid_layout(pg, base, growth)
+    if layout is None:
+        return []
+    per_rank = [_hybrid_rank_numpy(pg, p, layout) for p in range(pg.n_parts)]
+    return [tuple(np.stack(arrs) for arrs in zip(*buckets))
+            for buckets in zip(*per_rank)]
+
+
 def _ell_numpy(indptr, indices, degrees, row_ids, widths):
     """Host-side bucketing against a fixed width ladder.
 
     Returns one (rows, deg, tile) numpy triple per width, empty buckets
-    included (`build_ell` drops them).
+    included (`build_ell` drops them; the hybrid builder pads them to the
+    partitions' common shapes).
     """
     out = []
     lo = 0

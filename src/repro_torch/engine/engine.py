@@ -5,7 +5,8 @@
     result = engine.bfs([r0, r1, ...])          # batch or single root
     result.validate(graph)
 
-The port of the JAX package's `engine/engine.py` for one partition:
+The port of the JAX package's `engine/engine.py`. Three backends; `auto`
+picks `fused` for one partition and `sharded` for more:
 
 * ``fused`` — a batch of B roots runs the batched cohort model
   (`repro_torch.core.bfs`) on the shared `LevelDriver`: per level the batch
@@ -14,13 +15,21 @@ The port of the JAX package's `engine/engine.py` for one partition:
   `BFSConfig.hub_split`). Batches pad to a power-of-two bucket (at least 8)
   with inactive lanes. Unbatched (Graph500) mode runs the same cohort step
   at bucket 1, one root at a time, timed per root.
-* ``stepper`` — one root at a time through the single-root level step on
-  the same driver, returning per-level direction/frontier/timing rows per
-  root (`per_level_stats`) and out-of-loop phase times (`timings`).
+* ``sharded`` — the paper's partitioned BSP search
+  (`repro_torch.core.hybrid_bfs.make_hybrid_search`) on a
+  `torch.distributed` group with one rank per partition
+  (`GraphSession.group_for`). Every rank runs the same query and gets the
+  same result. Roots run one after another (the reference pipelines their
+  dispatch; here each level reads the host).
+* ``stepper`` — one root at a time through the single-root level step, or
+  with `n_parts > 1` through `BSPStepBackend` on the group, on the same
+  driver, returning per-level direction/frontier/timing rows per root
+  (`per_level_stats`, with the compute/exchange split on the partitioned
+  path) and out-of-loop phase times (`timings`).
 
-The ``sharded`` backend, and ``stepper`` over more than one partition,
-raise `NotImplementedError` (ROADMAP.md queue 1 item 8); with one device,
-``auto`` resolves to ``fused``.
+`n_parts=None` resolves to 1 unless a group with more than one rank exists
+and the graph has at least `AUTO_SHARD_MIN_EDGES` directed edges; then to
+the group's size.
 """
 from __future__ import annotations
 
@@ -34,19 +43,23 @@ import torch
 from repro_torch.core import bfs as B
 from repro_torch.core.bfs import BFSConfig
 from repro_torch.core.graph import Graph
-from repro_torch.engine.level_loop import (CohortBatchBackend, LevelDriver,
+from repro_torch.core.hybrid_bfs import (HybridConfig, finalize_hybrid,
+                                         make_hybrid_search,
+                                         make_hybrid_stepper)
+from repro_torch.engine.level_loop import (BSPStepBackend,
+                                           CohortBatchBackend, LevelDriver,
                                            QueryCancelled, QueryControl,
                                            QueryDeadlineExceeded,
-                                           SingleStepBackend)
+                                           SingleStepBackend, fence)
 from repro_torch.engine.result import (TraversalResult,
                                        edges_traversed_from_levels)
 from repro_torch.engine.session import GraphSession
 
 BACKENDS = ("fused", "sharded", "stepper")
 
-SHARDED_TODO = ("the sharded BSP search (backend='sharded', or 'stepper' "
-                "with n_parts > 1) is not ported yet: ROADMAP.md queue 1 "
-                "item 8 (multi-GPU BSP on torch.distributed)")
+# Auto-selection: below this many directed edges one fused search beats
+# the BSP machinery even when a group of ranks exists.
+AUTO_SHARD_MIN_EDGES = 1 << 19
 
 RootsLike = Union[int, np.integer, Sequence[int], np.ndarray]
 
@@ -66,9 +79,11 @@ def _bucket_batch(batch: int) -> int:
 class QueryPlan:
     """Fully resolved query parameters (hashable): queries with equal plans
     run the same cached step functions."""
-    backend: str              # resolved: "fused" | "stepper"
+    backend: str              # resolved: "fused" | "sharded" | "stepper"
     n_parts: int
-    cfg: BFSConfig
+    hcfg: HybridConfig
+    strategy: str
+    hub_edge_fraction: float
 
 
 def _tree_depth(level: np.ndarray) -> np.ndarray:
@@ -79,18 +94,21 @@ def _tree_depth(level: np.ndarray) -> np.ndarray:
 class Engine:
     """Facade over a `GraphSession`: build once, query many times.
 
-    `device` defaults to the GPU; without CUDA that raises, and a caller
-    that wants the CPU (the tests) passes `device="cpu"`.
+    `session_kw` go to the `GraphSession` (`device`, `group`,
+    `default_strategy`, `default_hub_edge_fraction`). `device` defaults to
+    the GPU; without CUDA that raises, and a caller that wants the CPU (the
+    tests) passes `device="cpu"`.
     """
 
-    def __init__(self, graph_or_session: Union[Graph, GraphSession], *,
-                 device=None):
+    def __init__(self, graph_or_session: Union[Graph, GraphSession],
+                 **session_kw):
         if isinstance(graph_or_session, GraphSession):
-            if device is not None:
-                raise ValueError("device only applies when passing a Graph")
+            if session_kw:
+                raise ValueError("session keyword arguments only apply "
+                                 "when passing a Graph")
             self.session = graph_or_session
         else:
-            self.session = GraphSession(graph_or_session, device=device)
+            self.session = GraphSession(graph_or_session, **session_kw)
 
     @property
     def graph(self) -> Graph:
@@ -102,29 +120,38 @@ class Engine:
 
     # ----------------------------------------------------------- selection --
 
-    @staticmethod
-    def _resolve(backend: str, n_parts: Optional[int]):
+    def _auto_parts(self) -> int:
+        ranks = self.session.world_size()
+        if ranks == 1 or self.graph.num_directed_edges < AUTO_SHARD_MIN_EDGES:
+            return 1
+        return ranks
+
+    def _resolve(self, backend: str, n_parts: Optional[int]):
         if backend not in BACKENDS + ("auto",):
             raise ValueError(f"unknown backend {backend!r}; "
                              f"want one of {BACKENDS + ('auto',)}")
         if n_parts is None:
-            n_parts = 1
+            n_parts = 1 if backend == "fused" else self._auto_parts()
         if backend == "auto":
             backend = "fused" if n_parts == 1 else "sharded"
         if backend == "fused" and n_parts != 1:
             raise ValueError("fused backend is single-partition; "
                              f"got n_parts={n_parts}")
-        if backend == "sharded" or n_parts != 1:
-            raise NotImplementedError(SHARDED_TODO)
+        if backend == "sharded" and n_parts < 2:
+            raise ValueError("sharded backend needs n_parts >= 2 "
+                             "(use backend='fused' for one partition)")
         return backend, n_parts
 
     @staticmethod
-    def _normalize_cfg(cfg) -> BFSConfig:
+    def _normalize_cfg(cfg) -> HybridConfig:
         if cfg is None:
-            return BFSConfig()
+            return HybridConfig()
         if isinstance(cfg, BFSConfig):
+            return HybridConfig(bfs=cfg)
+        if isinstance(cfg, HybridConfig):
             return cfg
-        raise TypeError(f"cfg must be a BFSConfig, got {type(cfg)}")
+        raise TypeError("cfg must be a BFSConfig or a HybridConfig, got "
+                        f"{type(cfg)}")
 
     def _normalize_roots(self, roots: RootsLike) -> np.ndarray:
         arr = np.atleast_1d(np.asarray(roots, dtype=np.int64))
@@ -141,26 +168,38 @@ class Engine:
     # --------------------------------------------------------------- query --
 
     def plan(self, cfg=None, *, backend: str = "auto",
-             n_parts: Optional[int] = None) -> QueryPlan:
-        """Resolve query knobs into a canonical, hashable `QueryPlan`."""
-        cfg = self._normalize_cfg(cfg)
+             n_parts: Optional[int] = None, strategy: Optional[str] = None,
+             hub_edge_fraction: Optional[float] = None) -> QueryPlan:
+        """Resolve query knobs into a canonical, hashable `QueryPlan` (the
+        session's partitioning defaults filled in)."""
+        hcfg = self._normalize_cfg(cfg)
         backend, n_parts = self._resolve(backend, n_parts)
-        return QueryPlan(backend, n_parts, cfg)
+        strategy = strategy or self.session.default_strategy
+        if hub_edge_fraction is None:
+            hub_edge_fraction = self.session.default_hub_edge_fraction
+        return QueryPlan(backend, n_parts, hcfg, strategy, hub_edge_fraction)
 
     def bfs(self, roots: RootsLike, cfg=None, *, backend: str = "auto",
-            n_parts: Optional[int] = None, batched: bool = True,
+            n_parts: Optional[int] = None, strategy: Optional[str] = None,
+            hub_edge_fraction: Optional[float] = None, batched: bool = True,
             validate: bool = False, on_level: Optional[Callable] = None,
             control: Optional[QueryControl] = None) -> TraversalResult:
         """Run BFS from one root or a batch of roots.
 
         Args:
           roots: int or 1-D int array of vertex ids.
-          cfg: `BFSConfig` (heuristic and tuning knobs).
-          backend: "auto" | "fused" | "stepper" ("sharded" is not ported).
-          n_parts: partition count; only 1 is supported.
+          cfg: `BFSConfig` (heuristic and tuning knobs) or a `HybridConfig`
+            (adds the exchange and coordinator of the partitioned path).
+          backend: "auto" | "fused" | "sharded" | "stepper".
+          n_parts: partition count (None: auto, see the module docstring).
+            More than one needs a group of exactly `n_parts` ranks, each
+            calling `bfs` with the same arguments.
+          strategy / hub_edge_fraction: partitioning knobs of the
+            partitioned paths; the session's defaults otherwise.
           batched: True runs the batch as one cohort search (per-root
-            seconds are an even split); False runs and times roots one at a
-            time (the Graph500 measurement mode).
+            seconds are an even split; on the sharded path the roots run
+            one after another, timed together); False runs and times roots
+            one at a time (the Graph500 measurement mode).
           validate: check every parent tree against the numpy oracle.
           on_level: streaming callback, `on_level(batch_index, row)` the
             moment each level's row lands on the host: one batch row per
@@ -171,7 +210,9 @@ class Engine:
             and once per level; aborts raise `QueryCancelled` /
             `QueryDeadlineExceeded` carrying the partial per-level stats.
         """
-        qp = self.plan(cfg, backend=backend, n_parts=n_parts)
+        qp = self.plan(cfg, backend=backend, n_parts=n_parts,
+                       strategy=strategy,
+                       hub_edge_fraction=hub_edge_fraction)
         return self.bfs_plan(roots, qp, batched=batched, validate=validate,
                              on_level=on_level, control=control)
 
@@ -180,12 +221,12 @@ class Engine:
                  on_level: Optional[Callable] = None,
                  control: Optional[QueryControl] = None) -> TraversalResult:
         """Run a query whose knobs were already resolved by `plan()`."""
-        if plan.backend not in ("fused", "stepper") or plan.n_parts != 1:
-            raise NotImplementedError(SHARDED_TODO)
-        if on_level is not None and not (plan.backend == "stepper"
-                                         or batched):
+        if on_level is not None and not (
+                plan.backend == "stepper"
+                or (plan.backend == "fused" and batched)):
             raise ValueError("on_level streaming needs backend='stepper' or "
-                             "the batched fused path (batched=True)")
+                             "the batched fused path, got "
+                             f"{plan.backend!r} (batched={batched})")
         if control is not None:
             control.check()
         roots_arr = self._normalize_roots(roots)
@@ -199,10 +240,15 @@ class Engine:
                 n_parts=plan.n_parts,
                 edges_undirected=self.graph.num_undirected_edges,
                 edges_traversed=np.empty((0,), np.int64))
+        pkey = (plan.n_parts, plan.strategy, plan.hub_edge_fraction)
         if plan.backend == "stepper":
-            res = self._bfs_stepper(roots_arr, plan.cfg, on_level, control)
+            res = self._bfs_stepper(roots_arr, plan.hcfg, pkey, on_level,
+                                    control)
+        elif plan.backend == "sharded":
+            res = self._bfs_sharded(roots_arr, plan.hcfg, pkey, batched,
+                                    control)
         else:
-            res = self._bfs_fused(roots_arr, plan.cfg, batched, control,
+            res = self._bfs_fused(roots_arr, plan.hcfg.bfs, batched, control,
                                   on_level)
         res.edges_traversed = edges_traversed_from_levels(self.graph.degrees,
                                                           res.level)
@@ -303,13 +349,31 @@ class Engine:
             lambda st: B.state_scalars(dg, cfg, st), dg.num_vertices,
             sess.device)
 
-    def _bfs_stepper(self, roots_arr, cfg, on_level=None,
+    def _stepper_backend_sharded(self, hcfg: HybridConfig,
+                                 pkey) -> BSPStepBackend:
+        """This rank's BSP driver backend over session-cached pieces."""
+        sess = self.session
+        group = sess.group_for(pkey[0])
+        sess.ensure_kernels()
+        plan, pg = sess.partitioned(*pkey)
+        ell = sess.hybrid_ell(*pkey)
+        pieces = sess.cached(("hybrid_stepper", hcfg) + pkey,
+                             lambda: make_hybrid_stepper(
+                                 pg, hcfg, group, sess.device, ell))
+        return BSPStepBackend(pieces, plan, sess.device)
+
+    def _bfs_stepper(self, roots_arr, hcfg, pkey, on_level=None,
                      control=None) -> TraversalResult:
-        driver = LevelDriver(self._stepper_backend_single(cfg))
+        n_parts = pkey[0]
+        backend = (self._stepper_backend_single(hcfg.bfs) if n_parts == 1
+                   else self._stepper_backend_sharded(hcfg, pkey))
+        driver = LevelDriver(backend)
+        wkey = (("stepper_warm", hcfg.bfs) if n_parts == 1
+                else ("stepper_warm", hcfg) + pkey)
         # The warm-up is a whole search too: it honours the control, and an
         # aborted one is not recorded, so the next query warms again.
         try:
-            self.session.warm(("stepper_warm", cfg),
+            self.session.warm(wkey,
                               lambda: driver.run(int(roots_arr[0]), None,
                                                  control))
         except (QueryCancelled, QueryDeadlineExceeded) as e:
@@ -336,6 +400,46 @@ class Engine:
         level = np.stack(levels)
         return TraversalResult(roots_arr, np.stack(parents), level,
                                _tree_depth(level), float(per_root.sum()),
-                               per_root, "stepper", 1,
+                               per_root, "stepper", n_parts,
                                self.graph.num_undirected_edges,
                                per_level_stats=stats_all, timings=timings)
+
+    # ------------------------------------------------------- sharded path --
+
+    def _bfs_sharded(self, roots_arr, hcfg, pkey, batched,
+                     control=None) -> TraversalResult:
+        """Every root through this rank's cached partitioned search, after
+        one warm-up search per (config, partitioning)."""
+        sess = self.session
+        group = sess.group_for(pkey[0])
+        sess.ensure_kernels()
+        plan, pg = sess.partitioned(*pkey)
+        ell = sess.hybrid_ell(*pkey)
+        search_fn, root_mapper = sess.cached(
+            ("hybrid_search", hcfg) + pkey,
+            lambda: make_hybrid_search(pg, hcfg, group, sess.device, ell))
+        roots_new = [root_mapper(int(r)) for r in roots_arr]
+        sess.warm(("sharded_warm", hcfg) + pkey,
+                  lambda: search_fn(roots_new[0]))
+        outs, per_root = [], []
+        t_all = time.perf_counter()
+        for rn in roots_new:
+            if control is not None:
+                control.check()
+            t0 = time.perf_counter()
+            outs.append(search_fn(rn))
+            fence(sess.device)
+            per_root.append(time.perf_counter() - t0)
+        dt = time.perf_counter() - t_all
+        per_root = (np.full(len(roots_new), dt / len(roots_new)) if batched
+                    else np.asarray(per_root))
+        parents, levels = [], []
+        for parent_new, level_new, _rounds in outs:
+            parent, level = finalize_hybrid(plan, parent_new, level_new)
+            parents.append(parent)
+            levels.append(level)
+        level = np.stack(levels)
+        return TraversalResult(roots_arr, np.stack(parents), level,
+                               _tree_depth(level), float(per_root.sum()),
+                               per_root, "sharded", pkey[0],
+                               self.graph.num_undirected_edges)

@@ -1,18 +1,19 @@
 """The per-level BFS loop: one driver for every host-synced search.
 
-The port of the JAX package's `engine/level_loop.py` for its two
-single-partition backends, `CohortBatchBackend` (the batched cohort path)
-and `SingleStepBackend` (one root, the stepper). The level driver owns the
-loop, the stats-row schema, the `on_level` streaming hook, the termination
-bound (checked before stepping: no level can exceed the vertex count minus
-one), cooperative cancellation, and the one host sync per level.
+The port of the JAX package's `engine/level_loop.py`: `CohortBatchBackend`
+(the batched cohort path), `SingleStepBackend` (one root, the stepper) and
+`BSPStepBackend` (one rank of the partitioned BSP search). The level driver
+owns the loop, the stats-row schema, the `on_level` streaming hook, the
+termination bound (checked before stepping: no level can exceed the vertex
+count minus one), cooperative cancellation, and the one host sync per
+level.
 
 That sync is one device-to-host copy: a backend's `scalars(state)` is a
 dict of device tensors (loop condition, direction decisions, cohort
 occupancy, per-lane vectors); `host_sync` stacks them into one int64
-tensor, calls `.cpu()` once, and unpacks on the host. Each level's step is
-timed up to one fence, `torch.cuda.synchronize(device)` on a GPU and
-nothing on the CPU.
+tensor, calls `.cpu()` once, and unpacks on the host. Each level's work is
+timed up to a fence, `torch.cuda.synchronize(device)` on a GPU and nothing
+on the CPU.
 
 A backend, duck-typed:
 
@@ -24,9 +25,12 @@ A backend, duck-typed:
     def row(pre, post, seconds) -> dict   # row fields beyond the driver's
     def finalize(state) -> (parent, level)  # host numpy
 
-The JAX package's driver also serves the sharded BSP backend, whose
-exchange phase is timed apart from its compute; that part of the protocol
-comes back with the sharded path (ROADMAP.md queue 1 item 8).
+A backend whose level is a compute phase and an exchange phase (the BSP
+backend) has `compute(state, sync) -> work` and `exchange(state, work) ->
+state` in place of `step`; the driver fences after each and reports their
+seconds as the row's `compute_s` and `exchange_s` (the paper's Fig. 3
+breakdown). For the other backends `compute_s` is the level's seconds and
+`exchange_s` is 0.0.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bfs as B
+from repro_torch.core.hybrid_bfs import finalize_hybrid
 
 
 # ------------------------------------------------------------ cancellation --
@@ -241,6 +246,40 @@ class SingleStepBackend:
         return B.finalize(state)
 
 
+class BSPStepBackend:
+    """One rank of the partitioned BSP search, over `make_hybrid_stepper`'s
+    pieces: `compute` runs the rank's local step (no communication),
+    `exchange` the OR exchange and the state update; the driver times them
+    apart. `init` takes an original vertex id; `finalize` runs the min
+    all-reduce and maps the padded new-id results back to original ids
+    through the partition plan. Every rank of the group drives the same
+    root, level by level."""
+
+    def __init__(self, pieces, plan, device: torch.device):
+        self._pieces = pieces
+        self._plan = plan
+        self.scalars = pieces.scalars
+        self.depth_bound = max(plan.v_orig - 1, 0)
+        self.device = torch.device(device)
+
+    def init(self, root):
+        return self._pieces.init(self._pieces.root_mapper(int(root)))
+
+    def compute(self, state, sync):
+        return self._pieces.compute(state, sync["bu_next"])
+
+    def exchange(self, state, work):
+        return self._pieces.exchange(state, *work)
+
+    @staticmethod
+    def row(pre, post, seconds) -> dict:
+        return dict(direction="bu" if post["bu"] else "td")
+
+    def finalize(self, state):
+        parent_new, level_new = self._pieces.finalize(state)
+        return finalize_hybrid(self._plan, parent_new, level_new)
+
+
 # ------------------------------------------------------------------ driver --
 
 
@@ -285,6 +324,7 @@ class LevelDriver:
         spent outside the timed steps.
         """
         b = self.backend
+        split = hasattr(b, "exchange")
         t_run = time.perf_counter()
         state = b.init(root)
         fence(b.device)
@@ -299,17 +339,22 @@ class LevelDriver:
                     e.per_level_stats = stats
                     raise
             t0 = time.perf_counter()
-            state = b.step(state, pre)
+            if split:
+                work = b.compute(state, pre)
+                fence(b.device)
+                t1 = time.perf_counter()
+                state = b.exchange(state, work)
+            else:
+                state = b.step(state, pre)
             fence(b.device)
-            seconds = time.perf_counter() - t0
+            t2 = time.perf_counter()
+            if not split:
+                t1 = t2           # one step: compute_s == seconds
             post = host_sync(b.scalars(state))
-            # Compute and exchange are one step on one device, so every
-            # row has compute_s == seconds and exchange_s == 0.0, as the
-            # reference's rows of its unsharded backends.
-            row = dict(level=post["cur"], seconds=seconds, compute_s=seconds,
-                       exchange_s=0.0, frontier_size=pre["nf"],
+            row = dict(level=post["cur"], seconds=t2 - t0, compute_s=t1 - t0,
+                       exchange_s=t2 - t1, frontier_size=pre["nf"],
                        frontier_edges=pre["mf"])
-            row.update(b.row(pre, post, seconds))
+            row.update(b.row(pre, post, t2 - t0))
             stats.append(row)
             if on_level:
                 on_level(row)

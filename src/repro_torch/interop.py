@@ -1,7 +1,8 @@
 """Carry state from the JAX package into the port, as numpy arrays.
 
 Both packages can then compute on identical inputs: the graph, its ELL
-tiles and a mid-search `BatchState` or `BFSState` (the BFS system has no
+tiles, a mid-search `BatchState` or `BFSState` or one rank's partitioned
+stepper state (the BFS system has no
 weights; the graph and the search state take their place), and the LLM
 serving path's weights and KV caches. Only numpy crosses over; this
 module imports nothing of the JAX package, and loads the LLM modules only
@@ -16,6 +17,7 @@ from repro_torch.core.bfs import (BATCH_STATE_FIELDS, BFS_STATE_FIELDS,
                                   BatchState, BFSState)
 from repro_torch.core.ell import EllBucket
 from repro_torch.core.graph import Graph
+from repro_torch.core.hybrid_bfs import HYBRID_STATE_FIELDS
 
 
 def graph_from_arrays(num_vertices: int, indptr, indices,
@@ -60,6 +62,23 @@ def bfs_state_from_arrays(arrays: dict, device) -> BFSState:
     name: the 10 fields of the JAX package's `BFSState.tree_flatten`, in
     that order (`BFS_STATE_FIELDS`), each with its dtype."""
     return _state(BFSState, BFS_STATE_FIELDS, arrays, device)
+
+
+def hybrid_state_from_arrays(arrays: dict, rank: int, device) -> dict:
+    """Rank `rank`'s partitioned stepper state (`core.hybrid_bfs`) from the
+    JAX package's `make_hybrid_stepper` state dict of numpy arrays: the
+    11 fields of `HYBRID_STATE_FIELDS`, each with its dtype; the stacked
+    `pcand` [n, v_pad] gives its row `rank`, the rank's own candidates."""
+    missing = [f for f in HYBRID_STATE_FIELDS if f not in arrays]
+    if missing:
+        raise KeyError(f"hybrid stepper state fields missing: {missing}")
+    out = {}
+    for f in HYBRID_STATE_FIELDS:
+        arr = np.array(arrays[f])
+        if f == "pcand":
+            arr = arr[rank]
+        out[f] = torch.from_numpy(arr).to(device)
+    return out
 
 
 def _as(arr, dtype, device) -> torch.Tensor:

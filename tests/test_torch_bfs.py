@@ -237,10 +237,14 @@ def test_decide_direction_float32_thresholds(heuristic, magnitude):
 def test_unported_paths_raise_and_name_the_roadmap():
     g = GRAPHS["rmat"][0]
     eng = Engine(g, device="cpu")
-    for kw in (dict(backend="sharded"), dict(backend="stepper", n_parts=2),
-               dict(n_parts=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # The partitioned paths are ported: with no process group they name
+    # the way to start one rank per partition instead of running.
+    for kw in (dict(backend="sharded", n_parts=2),
+               dict(backend="stepper", n_parts=2), dict(n_parts=2)):
+        with pytest.raises(ValueError, match="torchrun"):
             eng.bfs(0, **kw)
+    with pytest.raises(ValueError, match="n_parts >= 2"):
+        eng.bfs(0, backend="sharded")
     with pytest.raises(ValueError):
         eng.bfs(0, n_parts=2, backend="fused")
     plan = eng.plan(TB.BFSConfig(heuristic="beamer"))

@@ -6,10 +6,14 @@
   runs CPU searches on every path (unsplit, hub split, stepper, `bfs()`)
   and the LLM serving entry point at smoke size;
 * `Engine(g)` and the serving entry point with no device ask for CUDA and
-  raise without it;
+  raise without it, a partitioned query and `parallel.ranks` too (a rank's
+  device is never a quiet CPU);
 * the BFS path (and the interop module) does not import the LLM serving
   modules (the port's counterpart of the JAX package's DC001 quarantine),
-  and the serving path does not import the BFS engine.
+  and the serving path does not import the BFS engine;
+* on the card (`cuda`-marked, skipped elsewhere): P = 2 gloo ranks share
+  the GPU, and their partitioned searches equal the same ranks' CPU
+  searches.
 """
 import ast
 import os
@@ -101,6 +105,57 @@ def test_engine_without_device_needs_cuda(monkeypatch):
     assert res.parent.shape == (1, g.num_vertices)
 
 
+def test_partitioned_paths_without_device_need_cuda(monkeypatch, tmp_path):
+    from repro_torch.parallel import ranks
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = TG.rmat(6, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(g).bfs(0, n_parts=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(g, default_strategy="hub0").bfs(0, backend="stepper",
+                                               n_parts=2)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ranks.run_ranks(sharded_parity_rank, 2, str(tmp_path),
+                            device=device)
+    assert list(tmp_path.iterdir()) == []      # no rank was started
+
+
+def sharded_parity_rank(rank, group, device):
+    """One rank's partitioned searches on `device` against the same
+    searches on the CPU, over the same group."""
+    from repro_torch.core.hybrid_bfs import HybridConfig
+    g = TG.rmat(10, seed=3)
+    roots = [int(np.argmax(g.degrees)), 7]
+    gpu, cpu = Engine(g, device=device), Engine(g, device="cpu")
+    for strategy in ("random", "hub0", "specialized"):
+        for hcfg in (HybridConfig(), HybridConfig(exchange="bitmap")):
+            for backend in ("sharded", "stepper"):
+                a = gpu.bfs(roots, hcfg, backend=backend, n_parts=2,
+                            strategy=strategy)
+                b = cpu.bfs(roots, hcfg, backend=backend, n_parts=2,
+                            strategy=strategy)
+                assert np.array_equal(a.parent, b.parent), strategy
+                assert np.array_equal(a.level, b.level), strategy
+                if backend == "stepper":
+                    keys = ("level", "direction", "frontier_size",
+                            "frontier_edges")
+                    assert [[tuple(r[k] for k in keys) for r in s]
+                            for s in a.per_level_stats] == \
+                        [[tuple(r[k] for k in keys) for r in s]
+                         for s in b.per_level_stats]
+    return True
+
+
+@pytest.mark.cuda
+def test_sharded_ranks_on_the_card_match_the_cpu(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the GPU host)")
+    from repro_torch.parallel import ranks
+    assert ranks.run_ranks(sharded_parity_rank, 2, str(tmp_path),
+                           backend="gloo", timeout=600) == [True, True]
+
+
 def test_serve_without_device_needs_cuda(monkeypatch):
     from repro_torch.launch import serve
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -113,7 +168,8 @@ def test_serve_without_device_needs_cuda(monkeypatch):
 QUARANTINE_RUN = r"""
 import sys
 import repro_torch.core.bfs, repro_torch.engine, repro_torch.kernels.ops
-import repro_torch.interop
+import repro_torch.interop, repro_torch.core.hybrid_bfs
+import repro_torch.parallel.collectives, repro_torch.parallel.ranks
 loaded = sorted(m for m in sys.modules if m.startswith((
     "repro_torch.models", "repro_torch.configs", "repro_torch.train",
     "repro_torch.launch", "repro_torch.kernels.decode_attn")))
