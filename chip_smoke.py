@@ -79,6 +79,33 @@ a nonzero exit; nothing is caught):
    compute_s / exchange_s for psum and bitmap, agg_s, the bytes a level on
    the wire, the group's backend. The times are of P ranks sharing one
    card over gloo, not of a multi-GPU run.
+5v. The BFS server (`repro_torch.engine.BFSServer`, `launch.bfs_serve`)
+   on the card. Load: two sessions of the --scale graph (each its own CSR
+   and tiles), `bfs_serve.run_load` with 8 clients x 4 queries x 4 roots,
+   every 4th query streamed (the stepper), queue depth 64, 16 in flight a
+   client; launch counts zeroed after run_load's warm-ups, just before the
+   clients start, and read just after: rows 1-3 (the fused dispatches)
+   and 5-7 (the streamed ones) must launch. Served equals submitted (with
+   the warm-ups); failed, dispatch failures, degradations and worker
+   crashes are 0; every tree passes the Graph500 check, and every root's
+   parent and level equal the same root through `Engine.bfs` in the
+   gather formulation (`backend_kernels=False`: plain PyTorch, no kernel)
+   on the same session, 32 roots a search.
+   Printed: QPS, p50/p99 latency (p99 of 32 queries is their maximum),
+   aggregate TEPS, roots a dispatch, queue
+   high water, each session's `busy_s`, beside the card's name and power
+   limit (two sessions share the card: a level's seconds end at a
+   device-wide sync). Then 4 roots through the gather formulation
+   (`backend_kernels=False`) at --scale: equal to the tiles bit for bit,
+   no port kernel launched, its seconds beside the tiles'. Then on the
+   phase-3 graph the chain: `worker@0` (a crash, a restart, served),
+   `dispatch[mode=batch]@0` (a retry), `dispatch[kernels=tiles]@*` (the
+   client gets `FaultInjected`: on the card the chain has no gather stage,
+   so `degraded_backend` stays 0), `dispatch[mode=batch]@*`
+   (`degraded_scalar`, trees equal the tiles'), `device@*` (a typed
+   `DevicePressure`, `failed`),
+   the breaker's trip and recovery, and the two cancel probes on a
+   512-level path.
 6. The serving path at gemma2-9b's full width (42 layers, bf16, random
    weights from --seed), after the BFS phases' tensors are freed:
    `launch.serve.serve` (what `main` runs) with batch 4, a 4,200-token
@@ -1673,6 +1700,267 @@ def sharded_phase(args, g16, g22, rng, record, entries):
             sharded_bound_ms=t["bound_ms"])
 
 
+# ------------------------------------------------------------ the server --
+
+# Phase 5v's load: two sessions ("replicas" of the --scale graph, each with
+# its own CSR and tiles), 8 clients x 4 queries x 4 roots, every 4th query
+# streamed, queue depth 64, 16 queries in flight a client.
+SERVER_LOAD = dict(clients=8, queries_per_client=4, batch=4, stream_every=4)
+SERVER_CAPS = dict(max_queue_depth=64, max_inflight_per_client=16)
+SERVER_KERNELS = {"batch": ("bottomup_batch", "topdown_push_batch",
+                            "frontier_fused_batch"),
+                  "stream": ("bottomup", "topdown_push", "frontier_fused")}
+SERVER_NOTE = ("two sessions share one H100: a level's seconds end at a "
+               "device-wide sync, so they hold the other session's queued "
+               "work too; not solo numbers")
+CANCEL_LEVELS = 512               # the cancel probes' path length
+RECHECK_ROOTS = 32                # roots a gather search in the recheck
+
+
+def server_phase(args, g16, g22, rng, record, dev, entries):
+    """Phase 5v: `BFSServer` on the card. The load over two scale-22
+    sessions (every tree checked, every root equal to the same root
+    through `Engine.bfs` in the gather formulation on the same session,
+    plain PyTorch and independent of the kernels; rows 1-3 and 5-7
+    launched in the measured window), one gather query at scale 22 against
+    the tiles, and the degradation chain (no gather stage on the card),
+    the breaker and the cancel probes on the phase-3 graph."""
+    import torch
+    from repro_torch.core.bfs import BFSConfig
+    from repro_torch.engine import BFSServer, RetryPolicy, SessionUnavailable
+    from repro_torch.kernels import ops
+    from repro_torch.launch import bfs_serve
+    from repro_torch.runtime.faults import (DevicePressure, FaultInjected,
+                                            fault_scope)
+    rec = record["server"] = dict(note=SERVER_NOTE, card=record["card"])
+    t_phase = time.perf_counter()
+
+    # the load on two sessions of the --scale graph, after the same load
+    # on one of them (how far the two workers overlap); both sessions are
+    # warm first, so neither window holds a build or a warm-up search
+    graphs = {"replica-0": g22, "replica-1": g22}
+    server = BFSServer(graphs, **SERVER_CAPS)
+    cand = np.flatnonzero(g22.degrees > 0)
+    for name in graphs:
+        server.submit(name, cand[:4], client="warm").result(600)
+        server.submit(name, cand[:1], client="warm",
+                      stream=True).result(600)
+    one = bfs_serve.run_load(server, {"replica-0": g22}, seed=args.seed,
+                             validate=0, **SERVER_LOAD)
+    # a worker counts a served query just after it wakes the client: wait
+    # for the last count (2 x 2 warm-ups, run_load's 2, the load's)
+    want = 2 * len(graphs) + 2 + one["queries"]
+    deadline = time.monotonic() + 60
+    while server.stats()["totals"]["served"] < want:
+        assert time.monotonic() < deadline, "the one-session load's counts"
+        time.sleep(0.01)
+    before = server.stats()
+    # the counts start after run_load's warm-ups: the measured window only
+    m = bfs_serve.run_load(server, graphs, seed=args.seed, validate=0,
+                           keep_results=True,
+                           before_clients=ops.reset_launches, **SERVER_LOAD)
+    launches = {k: ops.LAUNCHES[k] for k in BFS_KERNELS}
+    results = m.pop("results")
+    submitted = SERVER_LOAD["clients"] * SERVER_LOAD["queries_per_client"]
+    assert m["queries"] == submitted
+    for kind, names in SERVER_KERNELS.items():
+        for k in names:
+            assert launches[k] > 0, f"{k} never launched under the load"
+    n_stream = sum(r.backend == "stepper" for _, r in results)
+    assert n_stream == submitted // SERVER_LOAD["stream_every"], n_stream
+    check = Graph500Check(g22, dev)
+    t0 = time.perf_counter()
+    n_trees = sum(trees_ok(check, res) for _, res in results)
+    # every served root against the gather formulation on its session,
+    # RECHECK_ROOTS roots a search; no port kernel may launch in it
+    gcfg = BFSConfig(backend_kernels=False)
+    ops.reset_launches()
+    n_roots = 0
+    for name in graphs:
+        rows = [(res, j) for n, res in results if n == name
+                for j in range(len(res.roots))]
+        for i in range(0, len(rows), RECHECK_ROOTS):
+            part = rows[i:i + RECHECK_ROOTS]
+            ref = server.engine(name).bfs(
+                np.asarray([r.roots[j] for r, j in part]), gcfg)
+            for k, (r, j) in enumerate(part):
+                assert np.array_equal(r.parent[j], ref.parent[k]), \
+                    f"{name} root {r.roots[j]}: parent differs from gather"
+                assert np.array_equal(r.level[j], ref.level[k]), \
+                    f"{name} root {r.roots[j]}: level differs from gather"
+            n_roots += len(part)
+    assert n_roots == submitted * SERVER_LOAD["batch"], n_roots
+    assert sum(ops.LAUNCHES.values()) == 0, dict(ops.LAUNCHES)
+    rec["recheck_s"] = time.perf_counter() - t0
+    del check, results
+    # read after the recheck, which bypasses the server: by now every
+    # worker has counted its last query (it counts just after the wake)
+    stats = server.stats()
+    tot = {k: v - before["totals"][k] for k, v in stats["totals"].items()}
+    for k in ("failed", "dispatch_failures", "degraded_backend",
+              "degraded_scalar", "worker_crashes"):
+        assert stats["totals"][k] == 0, f"server {k} under the load"
+    warm = len(graphs) * 2        # run_load's warm-up queries
+    assert tot["served"] == submitted + warm, (tot["served"], submitted)
+    # `launches` covers the clients' queries alone; served, batches and
+    # roots a dispatch hold run_load's warm-ups too
+    sess = stats["sessions"]
+    busy = {n: sess[n]["busy_s"] - before["sessions"][n]["busy_s"]
+            for n in graphs}
+    rec["load"] = dict(
+        m, submitted=submitted, served=tot["served"],
+        batches=tot["batches"], roots_per_dispatch=tot["roots"]
+        / max(tot["batches"], 1), launches=launches,
+        high_water={n: sess[n]["queue_high_water"] for n in graphs},
+        busy_s=busy, busy_over_wall=sum(busy.values()) / m["wall_s"],
+        runtime={n: sess[n]["runtime"] for n in graphs})
+    rec["one_session"] = one
+    L = rec["load"]
+    log(f"phase 5v: BFSServer on {record['card']}, 2 sessions of RMAT scale "
+        f"{args.scale}, {SERVER_LOAD['clients']} clients x "
+        f"{SERVER_LOAD['queries_per_client']} queries x "
+        f"{SERVER_LOAD['batch']} roots, every "
+        f"{SERVER_LOAD['stream_every']}th streamed ({SERVER_NOTE}): "
+        f"{L['qps']:.3f} QPS, p50 {L['latency_p50_ms']:.1f} ms, p99 "
+        f"{L['latency_p99_ms']:.1f} ms, {L['teps_sustained'] / 1e9:.4f} "
+        f"GTEPS aggregate (p99 of {m['queries']} queries is their "
+        f"maximum), {L['roots_per_dispatch']:.2f} roots a dispatch "
+        f"({tot['served']} queries in {tot['batches']} dispatches, "
+        f"run_load's 4 warm-ups included), queue high water (both loads) "
+        f"{L['high_water']}, busy_s "
+        + ", ".join(f"{n} {s:.3f}" for n, s in L["busy_s"].items())
+        + f" (sum / wall {L['busy_over_wall']:.2f}); the same load on one "
+        f"session: {one['qps']:.3f} QPS, p50 {one['latency_p50_ms']:.1f} "
+        f"ms, {one['teps_sustained'] / 1e9:.4f} GTEPS (two sessions / one: "
+        f"{L['qps'] / one['qps']:.2f}x QPS)")
+    log(f"  {n_trees} trees pass the Graph500 check and each of their "
+        f"{n_roots} roots equals Engine.bfs in the gather formulation on the "
+        f"same session ({rec['recheck_s']:.1f} s); 0 failed, 0 "
+        f"degraded, 0 crashes; launches under the load (warm-ups excluded) "
+        f"{ {k: c for k, c in launches.items() if c} }")
+
+    # the gather formulation at full size, against the tiles
+    eng = server.engine("replica-0")
+    roots = rng.choice(np.flatnonzero(g22.degrees > 0), 4, replace=False)
+    tiles = eng.bfs(roots)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    gather = eng.bfs(roots, BFSConfig(backend_kernels=False))
+    gather_wall = time.perf_counter() - t0
+    assert sum(ops.LAUNCHES.values()) == 0, dict(ops.LAUNCHES)
+    assert np.array_equal(gather.parent, tiles.parent), "gather parent"
+    assert np.array_equal(gather.level, tiles.level), "gather level"
+    rec["gather"] = dict(roots=roots.tolist(), seconds=gather.seconds,
+                         wall_with_warm_s=gather_wall,
+                         tiles_seconds=tiles.seconds,
+                         levels=level_rows(gather.batch_level_stats))
+    log(f"  gather formulation, 4 roots at scale {args.scale}: "
+        f"{gather.seconds:.3f} s (first query with its warm-up "
+        f"{gather_wall:.1f} s) against the tiles' {tiles.seconds:.3f} s; "
+        f"equal bit for bit, no port kernel launched; per level "
+        + ", ".join(f"{r['direction']} {r['seconds'] * 1e3:.0f} ms"
+                    for r in rec["gather"]["levels"]))
+    server.close()
+    del server, eng, tiles, gather
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the chain, the breaker and the cancel probes on the phase-3 graph
+    roots = rng.choice(np.flatnonzero(g16.degrees > 0), 4, replace=False)
+    chain = rec["chain"] = {}
+
+    def counters(srv):
+        srv.close()               # joins the workers: the counts are final
+        return srv.stats()["sessions"]["g"]
+
+    for sched, want in (("worker@0", dict(worker_crashes=1,
+                                          worker_restarts=1, served=1)),
+                        ("dispatch[mode=batch]@0", dict(retries=1,
+                                                        served=1))):
+        srv = BFSServer({"g": g16})
+        with fault_scope(sched, seed=args.seed):
+            srv.submit("g", roots, client="c").result(600)
+        c = counters(srv)
+        assert all(c[k] == v for k, v in want.items()), (sched, c)
+        chain[sched] = {k: c[k] for k in want}
+    srv = BFSServer({"g": g16}, retry=RetryPolicy(max_retries=0),
+                    breaker_threshold=100)
+    kcfg = BFSConfig(backend_kernels=True)
+    oracle = srv.submit("g", roots, kcfg, client="o").result(600)
+    # on the card the chain has no gather stage: every tiles dispatch
+    # fails here, the batch and then the scalar stage, and the client gets
+    # the fault itself
+    with fault_scope("dispatch[kernels=tiles]@*", seed=args.seed):
+        try:
+            srv.submit("g", roots, kcfg, client="d").result(600)
+            raise AssertionError("dispatch[kernels=tiles]@* was served")
+        except FaultInjected:
+            pass
+    with fault_scope("dispatch[mode=batch]@*", seed=args.seed):
+        got = srv.submit("g", roots, client="d").result(600)
+    assert np.array_equal(got.parent, oracle.parent)
+    assert np.array_equal(got.level, oracle.level)
+    with fault_scope("device@*", seed=args.seed):
+        try:
+            srv.submit("g", roots, client="p").result(600)
+            raise AssertionError("device@* served a query")
+        except DevicePressure:
+            pass
+    c = counters(srv)
+    # dispatch failures: tiles@* batch + scalar, batch@* batch, device@*
+    # batch + scalar; none of them ran a gather stage
+    assert (c["degraded_backend"], c["degraded_scalar"], c["failed"],
+            c["retries"], c["dispatch_failures"]) == (0, 1, 2, 0, 5), c
+    chain["degrade"] = {k: c[k] for k in ("degraded_backend",
+                                          "degraded_scalar", "failed",
+                                          "dispatch_failures", "retries")}
+    srv = BFSServer({"g": g16}, retry=RetryPolicy(max_retries=0),
+                    breaker_threshold=2, breaker_reset_s=0.25)
+    gcfg = BFSConfig(backend_kernels=False)
+    srv.submit("g", roots, gcfg, client="w").result(600)
+    with fault_scope("dispatch@*:limit=2", seed=args.seed):
+        try:
+            srv.submit("g", roots, gcfg, client="v").result(600)
+            raise AssertionError("the tripping query was served")
+        except FaultInjected:
+            pass
+        try:
+            srv.submit("g", roots, gcfg, client="v")
+            raise AssertionError("an open breaker admitted a query")
+        except SessionUnavailable:
+            pass
+    time.sleep(0.3)
+    srv.submit("g", roots, gcfg, client="probe").result(600)
+    c = counters(srv)
+    assert c["breaker"]["state"] == "closed" and c["breaker"]["trips"] == 1
+    chain["breaker"] = dict(c["breaker"], breaker_rejected=c[
+        "breaker_rejected"])
+    srv = BFSServer({"g": g16})
+    probe = bfs_serve.run_cancel_probe(srv, levels=CANCEL_LEVELS)
+    fused = bfs_serve.run_fused_cancel_probe(srv, levels=CANCEL_LEVELS)
+    srv.close()
+    assert probe["cancelled"] == probe["served"] == probe["queries"] // 2
+    assert probe["inflight_after"] == 0 and probe["worker_alive"]
+    assert fused["cancelled"] and fused["inflight_after"] == 0
+    assert fused["levels_before_abort"] < CANCEL_LEVELS
+    chain["cancel_probe"] = probe
+    chain["fused_cancel_probe"] = fused
+    log(f"  chain on the scale-{PARITY_SCALE} graph: worker@0 "
+        f"{chain['worker@0']}; dispatch[mode=batch]@0 "
+        f"{chain['dispatch[mode=batch]@0']}; tiles@* -> FaultInjected (no "
+        f"gather stage on the card), batch -> scalar (trees equal the "
+        f"tiles'), device@* -> DevicePressure {chain['degrade']}; breaker "
+        f"{chain['breaker']}; cancel probe "
+        f"{probe['cancelled']} cancelled / {probe['served']} served, wall "
+        f"ratio {probe['wall_ratio']:.2f}; fused cancel after "
+        f"{fused['levels_before_abort']} of {CANCEL_LEVELS} levels")
+    for entry in entries:
+        if entry["name"] in SERVER_KERNELS["batch"] + SERVER_KERNELS["stream"]:
+            entry["server_launches"] = launches[entry["name"]]
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 5v: {rec['seconds']:.1f} s")
+
+
 def serve_phase(args, dev, record, dec_err):
     """Phase 6: gemma2-9b at full width through `launch.serve.serve`, its
     captured decode calls against the plain version, the kernel's times
@@ -1886,7 +2174,12 @@ def main() -> int:
     sharded_phase(args, g16, g22, rng, record, entries)
     record["sharded_s"] = time.perf_counter() - t0
     log(f"phase 5s: {record['sharded_s']:.1f} s")
+
+    # 5v. the BFS server on the card
+    server_phase(args, g16, g22, rng, record, dev, entries)
     del g16, g22
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 6. the serving path at full width
     entries.append(serve_phase(args, dev, record, dec_err))

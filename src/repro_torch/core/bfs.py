@@ -1,28 +1,50 @@
 """Direction-optimized BFS on PyTorch tensors: batched cohorts and one root.
 
-The port of the JAX package's `core/bfs.py` in its kernel formulation.
+The port of the JAX package's `core/bfs.py`, in both of its formulations:
+
+* **tiles** (`kernels_enabled(cfg)`): the per-level steps run the kernels
+  of `repro_torch.kernels.ops` over degree-bucketed ELL tiles
+  (`repro_torch.core.ell`). The tensors' device decides what a kernel
+  call runs: a CUDA tensor launches the hand-written kernel or raises, a
+  CPU tensor runs its plain version.
+* **gather** (`BFSConfig(backend_kernels=False)` or `REPRO_KERNELS=off`):
+  the JAX package's XLA formulation, the CSR gather/scatter steps
+  (`_topdown_step*`, `_bottomup_step*`, `_hub_pull_batch`) in plain
+  PyTorch on whatever device the session has; no ELL tiles are built and
+  no kernel launches.
+
+Both give the same bits, as in the JAX package; only the route differs.
+The JAX package's `auto` picks its XLA formulation off the TPU, while here
+`auto` picks the tiles on every device.
 
 * **Batched cohort path** (`init_batch` .. `batch_scalars`). A batch of B
   searches is a structure of arrays (`[B, V]` flags, parents and levels
   plus per-lane statistics). Each level partitions the batch into a
   top-down cohort, a bottom-up cohort and the finished lanes, and each
-  direction runs once over its masked cohort through the kernels of
-  `repro_torch.kernels.ops` over degree-bucketed ELL tiles
-  (`repro_torch.core.ell`). A lane outside a cohort carries zero degrees
-  and costs no traversal work. With `BFSConfig.hub_split` every level runs
-  as two sides, the hub rows (degree above the snapped `hub_deg` floor) and
-  the tail, each with its own direction per lane; the hub side pulls
-  through the hub kernel. The host loop lives in
-  `repro_torch.engine.level_loop.CohortBatchBackend`. The two kernel steps
-  are named after their kernels (`_topdown_step_kernels_batch`,
+  direction runs once over its masked cohort. A lane outside a cohort
+  carries zero degrees (tiles) or no queue entries (gather) and costs no
+  traversal work. With `BFSConfig.hub_split` every level runs as two
+  sides, the hub rows (degree above the snapped `hub_deg` floor) and the
+  tail, each with its own direction per lane; the hub side pulls through
+  the hub kernel (tiles) or `_hub_pull_batch` (gather). The host loop
+  lives in `repro_torch.engine.level_loop.CohortBatchBackend`. The kernel
+  steps are named after their kernels (`_topdown_step_kernels_batch`,
   `_bottomup_step_kernels_batch`); their reference counterparts are the
   kernel steps at `repro/core/bfs.py:700-745`.
-* **Single-root path** (`init_state` .. `bfs_instrumented`), through the
-  single-lane kernels. The reference branches on the device with
-  `lax.cond`; here the branch is taken on the host, from the one sync per
-  level: its payload (`state_scalars`) carries the next step's direction,
-  decided on the device by the same `_decide_direction` that sets the
-  state's `bu_mode`, and the step takes it as an argument.
+* **Single-root path** (`init_state` .. `bfs_instrumented`). The reference
+  branches on the device with `lax.cond`; here the branch is taken on the
+  host, from the one sync per level: its payload (`state_scalars`) carries
+  the next step's direction, decided on the device by the same
+  `_decide_direction` that sets the state's `bu_mode`, and the step takes
+  it as an argument.
+
+The gather steps do not copy the reference's while-loops chunk by chunk:
+`td_chunk`, `bu_chunk`, `bu_slab` and `hub_slab` only group work there. The
+push covers the frontier's whole edge mass in slabs of `GATHER_SLOTS` slots
+(a commutative scatter-min, so any grouping gives the same parents); the
+pull takes per unvisited row the lowest CSR slot whose neighbour is in the
+frontier (the reference's first hit, whatever its grouping), scanning
+column blocks that widen until every row found its hit or ran out.
 
 Steps are plain functions of tensors; a state is never updated in place, so
 a state can be kept and compared after later steps ran.
@@ -36,12 +58,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core import ell as ELL
+from repro_torch.core import frontier as fr
 from repro_torch.core.graph import Graph
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as K
@@ -53,12 +76,14 @@ INT_MAX = int(np.iinfo(np.int32).max)
 class BFSConfig:
     """Tuning and heuristic knobs (defaults follow the paper / Beamer).
 
-    Field names and defaults are the JAX package's. Its `backend_kernels`
-    switch is gone: here the tensors' device decides between a kernel and
-    its plain version (`kernels.ops`), so no config knob is needed.
-    `td_chunk`/`bu_chunk` size the JAX package's XLA formulation, which is
-    not ported yet, and `hub_slab` its XLA hub pull; they are kept so
-    configs carry over unchanged.
+    Field names and defaults are the JAX package's. `backend_kernels`
+    chooses the formulation (`kernels_enabled`): True the ELL-tile kernels
+    ("tiles"), False the CSR gather steps ("gather"), None the process's
+    `RuntimeConfig.kernel_backend` (`REPRO_KERNELS`). Within "tiles" the
+    tensors' device still decides between a kernel and its plain version
+    (`kernels.ops`). `td_chunk`, `bu_chunk`, `bu_slab` and `hub_slab` group
+    the JAX package's gather work and leave its result unchanged; the
+    port's gather steps take them and group their work their own way.
 
     `hub_split` runs every cohort level as a hub side and a tail side, each
     with its own direction decision per lane (the pull-cost input `mu` is
@@ -79,6 +104,22 @@ class BFSConfig:
     hub_split: bool = False       # hub/tail split per-level dispatch
     hub_deg: int = 256            # hub threshold (snapped to bucket ladder)
     hub_slab: int = 256           # neighbour slots per hub-side pull slab
+    backend_kernels: Optional[bool] = None   # tiles / gather / runtime
+
+
+def kernels_enabled(cfg: BFSConfig) -> bool:
+    """Resolve `cfg.backend_kernels`: True runs the ELL-tile kernels, False
+    the CSR gather formulation.
+
+    None defers to `RuntimeConfig.kernel_backend` (`REPRO_KERNELS`): 'off'
+    picks gather, 'auto' the tiles on every device (the JAX package's
+    'auto' picks its XLA formulation off the TPU; both give the same
+    bits). An explicit `BFSConfig.backend_kernels` always wins.
+    """
+    if cfg.backend_kernels is None:
+        from repro_torch.runtime.config import get_runtime_config
+        return get_runtime_config().kernel_backend != "off"
+    return bool(cfg.backend_kernels)
 
 
 @dataclasses.dataclass
@@ -171,6 +212,177 @@ def _decide_direction_batch(dg: DeviceGraph, cfg: BFSConfig, bu_mode,
     return bu, torch.where(bu, bu_steps + 1, zero)
 
 
+# ------------------------------------------------------ gather formulation --
+
+# Edge slots one gather pass holds at once: bounds a pass's memory (a few
+# int64 arrays of this length) whatever the frontier's edge mass.
+GATHER_SLOTS = 1 << 24
+
+
+def _gather_push(indices, ptr, deg, src, lane, visited, pcand,
+                 keep=None) -> None:
+    """Push queue entries, in place on `pcand` int32[B, V].
+
+    Entry i is lane `lane[i]`'s source vertex `src[i]` (int32) with CSR
+    slots `ptr[i] .. ptr[i] + deg[i]` of `indices`. For every slot whose
+    neighbour n is unvisited in that lane (`visited` uint8[B, V]) and kept
+    (`keep` bool[V] or None), `pcand[lane, n] = min(pcand[lane, n], src)`.
+    The slots go in slabs of `GATHER_SLOTS`; the scatter-min commutes, so
+    the slabs' grouping leaves the result unchanged.
+    """
+    if deg.numel() == 0:
+        return
+    v = visited.shape[1]
+    deg = deg.to(torch.int64)
+    ptr = ptr.to(torch.int64)
+    cum = torch.cumsum(deg, 0)
+    total = int(cum[-1])
+    vis = visited.reshape(-1)
+    out = pcand.view(-1)
+    for s0 in range(0, total, GATHER_SLOTS):
+        slots = torch.arange(s0, min(s0 + GATHER_SLOTS, total),
+                             device=deg.device)
+        owner = torch.searchsorted(cum, slots, right=True)
+        first = cum[owner] - deg[owner]
+        dst = indices[ptr[owner] + (slots - first)].to(torch.int64)
+        flat = lane[owner] * v + dst
+        fresh = vis[flat] == 0
+        if keep is not None:
+            fresh &= keep[dst]
+        out.scatter_reduce_(0, flat, torch.where(fresh, src[owner], INT_MAX),
+                            "amin")
+
+
+def _gather_first_hits(indices, ptr, deg, lane, frontier):
+    """Each entry's lowest CSR slot whose neighbour is in its lane's
+    frontier: (found bool[n], parent int32[n], INT_MAX where not found).
+
+    Entry i scans slots `ptr[i] .. ptr[i] + deg[i]` of `indices` against
+    `frontier` uint8[B, V] row `lane[i]`. Column blocks of 32, 128, 512, ...
+    slots go in order, each over the entries still without a hit and with
+    slots left, at most `GATHER_SLOTS` slots a pass; an entry keeps the
+    lowest hitting column of the first block that hits, which is the
+    reference's first hit (its `argmax` over a slab, slabs in order).
+    """
+    n = deg.numel()
+    dev = deg.device
+    found = torch.zeros(n, dtype=torch.bool, device=dev)
+    par = torch.full((n,), INT_MAX, dtype=torch.int32, device=dev)
+    if n == 0:
+        return found, par
+    v = frontier.shape[-1]
+    front = frontier.reshape(-1)
+    deg = deg.to(torch.int64)
+    ptr = ptr.to(torch.int64)
+    lane = lane.to(torch.int64)
+    last = indices.numel() - 1
+    todo = torch.arange(n, device=dev)
+    start, width = 0, 32
+    while True:
+        todo = todo[deg[todo] > start]
+        if todo.numel() == 0:
+            return found, par
+        cols = torch.arange(width, device=dev)
+        for i in range(0, todo.numel(), max(1, GATHER_SLOTS // width)):
+            t = todo[i:i + max(1, GATHER_SLOTS // width)]
+            valid = (start + cols)[None, :] < deg[t, None]
+            nbr = indices[(ptr[t, None] + start + cols[None, :]).clamp_(
+                max=last)]
+            hit = valid & (front[lane[t, None] * v + nbr] != 0)
+            col = torch.where(hit, cols, width).amin(dim=1)
+            got = col < width
+            hit_nbr = nbr.gather(1, col.clamp(max=width - 1)[:, None])[:, 0]
+            found[t] = got
+            par[t] = torch.where(got, hit_nbr, INT_MAX)
+        todo = todo[~found[todo]]
+        start += width
+        width *= 4
+
+
+def _pull_merge(dg: DeviceGraph, frontier, parent, lane, rows):
+    """Pull the (lane, row) entries (distinct rows within a lane) and merge:
+    (next_flags uint8[B, V], parent with the hits' parents min-merged)."""
+    b, v = frontier.shape
+    found, par = _gather_first_hits(dg.indices, dg.indptr[rows],
+                                    dg.deg_ext[rows], lane, frontier)
+    flat = lane.to(torch.int64) * v + rows.to(torch.int64)
+    next_flags = torch.zeros((b, v), dtype=torch.uint8,
+                             device=frontier.device)
+    next_flags.view(-1)[flat] = found.to(torch.uint8)
+    parent = parent.clone()
+    pv = parent.view(-1)
+    pv[flat] = torch.minimum(pv[flat], par)
+    return next_flags, parent
+
+
+def _topdown_step_batch(dg: DeviceGraph, cfg: BFSConfig, frontier, visited,
+                        parent, mask, dst_mask=None):
+    """Gather push over the top-down cohort, the JAX package's
+    `repro/core/bfs.py:623` (lanes outside `mask` push nothing; `dst_mask`
+    bool[V] is the split's side filter on destinations). The flags follow
+    from the scatter-min: a vertex got a fresh slot iff its `pcand` is
+    below INT_MAX."""
+    b, v = frontier.shape
+    pcand = torch.full((b, v), INT_MAX, dtype=torch.int32,
+                       device=frontier.device)
+    lane, src = ((frontier != 0) & mask[:, None]).nonzero(as_tuple=True)
+    _gather_push(dg.indices, dg.indptr[src], dg.deg_ext[src], _i32(src),
+                 lane, visited, pcand, dst_mask)
+    return (pcand != INT_MAX).to(torch.uint8), torch.minimum(parent, pcand)
+
+
+def _bottomup_step_batch(dg: DeviceGraph, cfg: BFSConfig, frontier, visited,
+                         parent, mask, side=None, chunk=None, slab=None):
+    """Gather pull over the bottom-up cohort, the JAX package's
+    `repro/core/bfs.py:635`: every unvisited row of a lane in `mask` (and
+    in `side`, bool[V], when given) takes its first hit. `chunk`/`slab`
+    group the reference's work and do not change its result; here the
+    grouping is `_gather_first_hits`'s. Degree-0 rows never hit, so they
+    are left out."""
+    del chunk, slab
+    sel = (visited == 0) & mask[:, None] & (dg.deg_ext[:-1] > 0)[None, :]
+    if side is not None:
+        sel &= side[None, :]
+    lane, rows = sel.nonzero(as_tuple=True)
+    return _pull_merge(dg, frontier, parent, lane, rows)
+
+
+def _hub_pull_batch(dg: DeviceGraph, cfg: BFSConfig, hub_rows, frontier,
+                    visited, parent, mask):
+    """Gather pull over the static hub row list `hub_rows` (int[H]), the
+    JAX package's `repro/core/bfs.py:649`: each unvisited hub row of a lane
+    in `mask` takes its first hit; the flags are zero off the hub rows."""
+    act = (visited[:, hub_rows] == 0) & mask[:, None]
+    lane, j = act.nonzero(as_tuple=True)
+    return _pull_merge(dg, frontier, parent, lane, hub_rows[j])
+
+
+def _topdown_step(dg: DeviceGraph, cfg: BFSConfig, frontier, visited,
+                  parent, dst_mask=None):
+    """Gather push of one search (uint8[V] flags), the JAX package's
+    `repro/core/bfs.py:189`: (next_flags, parent)."""
+    one = torch.ones(1, dtype=torch.bool, device=frontier.device)
+    flags, parent = _topdown_step_batch(dg, cfg, frontier[None],
+                                        visited[None], parent[None], one,
+                                        dst_mask)
+    return flags[0], parent[0]
+
+
+def _bottomup_step(dg: DeviceGraph, cfg: BFSConfig, frontier, visited,
+                   parent_in, row_mask=None, chunk=None, slab=None):
+    """Gather pull of one search, the JAX package's `repro/core/bfs.py:240`:
+    (next_flags, parent). `row_mask` (bool, a scalar or [V]) restricts the
+    unvisited scan."""
+    v = frontier.shape[0]
+    one = torch.ones(1, dtype=torch.bool, device=frontier.device)
+    side = (None if row_mask is None else torch.as_tensor(
+        row_mask, dtype=torch.bool, device=frontier.device).expand(v))
+    flags, parent = _bottomup_step_batch(dg, cfg, frontier[None],
+                                         visited[None], parent_in[None], one,
+                                         side, chunk, slab)
+    return flags[0], parent[0]
+
+
 # ------------------------------------------------------------- single root --
 
 
@@ -256,11 +468,21 @@ def _advance(dg: DeviceGraph, cfg: BFSConfig, ell, st: BFSState,
              bu: bool) -> BFSState:
     """One level. `bu` is the host's copy of this step's direction, which
     `state_scalars(dg, cfg, st)["bu_next"]` brought over in the level's
-    sync; the state records the same decision, made here on the device."""
+    sync; the state records the same decision, made here on the device.
+    `ell` None runs the gather formulation (statistics as two plain sums),
+    else the kernels over `ell`."""
     bu_t, bu_steps = _decide_direction(dg, cfg, st)
-    step = _bottomup_step_kernels if bu else _topdown_step_kernels
-    next_flags, parent = step(dg, cfg, ell, st)
-    _, nf, mf = K.frontier_fused(next_flags, dg.deg_ext[:-1], packed=False)
+    if ell is None:
+        step = _bottomup_step if bu else _topdown_step
+        next_flags, parent = step(dg, cfg, st.frontier, st.visited,
+                                  st.parent)
+        nf = fr.count(next_flags)
+        mf = fr.edge_count(next_flags, dg.deg_ext[:-1])
+    else:
+        step = _bottomup_step_kernels if bu else _topdown_step_kernels
+        next_flags, parent = step(dg, cfg, ell, st)
+        _, nf, mf = K.frontier_fused(next_flags, dg.deg_ext[:-1],
+                                     packed=False)
     cur = st.cur_level + 1
     return BFSState(torch.maximum(st.visited, next_flags), next_flags, parent,
                     torch.where(next_flags != 0, cur, st.level), cur,
@@ -275,8 +497,14 @@ def state_scalars(dg: DeviceGraph, cfg: BFSConfig, st: BFSState) -> dict:
                 bu_next=_decide_direction(dg, cfg, st)[0])
 
 
-def _resolve_ell(dg: DeviceGraph, ell):
-    """`ell`, or the graph's own tiles built once and kept on `dg`."""
+def _resolve_ell(dg: DeviceGraph, cfg: BFSConfig, ell):
+    """The tiles the kernel formulation runs over, None for gather.
+
+    With kernels enabled: `ell`, or the graph's own tiles built once and
+    kept on `dg`. With kernels off no tile is built.
+    """
+    if not kernels_enabled(cfg):
+        return None
     if ell is not None:
         return ell
     return _memo(dg, ("ell",), lambda: ELL.build_device_graph_ell(dg))
@@ -284,8 +512,9 @@ def _resolve_ell(dg: DeviceGraph, ell):
 
 def make_level_step(dg: DeviceGraph, cfg: BFSConfig, ell=None):
     """`(state, bu) -> state` advancing one level, `bu` the host bool
-    `state_scalars(...)["bu_next"]` of the same state."""
-    return functools.partial(_advance, dg, cfg, _resolve_ell(dg, ell))
+    `state_scalars(...)["bu_next"]` of the same state; the formulation is
+    resolved here, once (`kernels_enabled`)."""
+    return functools.partial(_advance, dg, cfg, _resolve_ell(dg, cfg, ell))
 
 
 def search_state(dg: DeviceGraph, root: int, cfg: BFSConfig,
@@ -295,7 +524,7 @@ def search_state(dg: DeviceGraph, root: int, cfg: BFSConfig,
     (`engine.level_loop.host_sync` of `state_scalars`) reads the loop
     condition and the next direction together."""
     from repro_torch.engine.level_loop import host_sync
-    ell = _resolve_ell(dg, ell)
+    ell = _resolve_ell(dg, cfg, ell)
     max_levels = cfg.max_levels or dg.num_vertices
     st = init_state(dg, root)
     while True:
@@ -419,6 +648,25 @@ def _hub_split(dg: DeviceGraph, cfg: BFSConfig, ell) -> HubSplit:
     return _memo(dg, ("split", cfg.hub_deg, id(ell)), build)[1]
 
 
+class GatherSplit(NamedTuple):
+    """The gather formulation's view of the split at one `hub_deg`, built
+    once by `_gather_split`: the hub mask (the pushes' side filters are it
+    and its complement), the tail's pull rows (degree-0 rows never pull)
+    and the static hub row list of `_hub_pull_batch`."""
+    hub_v: torch.Tensor       # bool[V]
+    tail_pull: torch.Tensor   # bool[V]
+    hub_rows: torch.Tensor    # int64[H]
+
+
+def _gather_split(dg: DeviceGraph, cfg: BFSConfig) -> GatherSplit:
+    def build():
+        hub_v = _hub_row_mask(dg, cfg)
+        return GatherSplit(hub_v, ~hub_v & (dg.deg_ext[:-1] > 0),
+                           hub_v.nonzero()[:, 0])
+    return _memo(dg, ("gather_split", ELL.hub_degree_floor(cfg.hub_deg)),
+                 build)
+
+
 def init_batch(dg: DeviceGraph, cfg: BFSConfig, roots: torch.Tensor,
                active: torch.Tensor) -> BatchState:
     """Batched search start with an activity mask.
@@ -528,14 +776,17 @@ def _advance_batch(dg: DeviceGraph, cfg: BFSConfig, ell, split, variant: str,
                    st: BatchState) -> BatchState:
     """One cohort level: at most one top-down plus one bottom-up pass, each
     over its masked cohort, never both per lane. `variant` ("td" | "bu" |
-    "mixed") names the passes this step contains.
+    "mixed") names the passes this step contains. `ell` None runs the
+    gather formulation (`split` then a `GatherSplit`), else the kernels
+    over `ell` (`split` a `HubSplit`).
 
-    Under `hub_split` (`split` is the graph's `HubSplit`), "td" stays one
-    unmasked push (every side of every lane pushes); "bu" is a tail pull
-    over the tail buckets plus a hub pull over the hub buckets, which
-    together give the unsplit pull's flags and parents (a row's first hit
-    does not depend on which pass scans it); "mixed" adds a push per side,
-    each discovering only its side's vertices.
+    Under `hub_split`, "td" stays one unmasked push (every side of every
+    lane pushes); "bu" is a tail pull plus a hub pull, which together give
+    the unsplit pull's flags and parents (a row's first hit does not
+    depend on which pass scans it); "mixed" adds a push per side, each
+    discovering only its side's vertices. The gather tail pull takes the
+    reference's 4x wider chunks (`repro/core/bfs.py:825-833`), which change
+    nothing here.
     """
     b, v = st.frontier.shape
     dev = st.frontier.device
@@ -544,33 +795,57 @@ def _advance_batch(dg: DeviceGraph, cfg: BFSConfig, ell, split, variant: str,
     bu_t_mask = st.active & bu_t
     td_h_mask = st.active & ~bu_h
     bu_h_mask = st.active & bu_h
-    pushes, pulls = [], []      # (lanes, keep) and (lanes, tiles, hub)
+    pushes, pulls = [], []      # (lanes, side) with side None|"tail"|"hub"
     if split is None:
         if variant in ("td", "mixed"):
             pushes.append((td_t_mask, None))
         if variant in ("bu", "mixed"):
-            pulls.append((bu_t_mask, ell, False))
+            pulls.append((bu_t_mask, None))
     elif variant == "td":
         pushes.append((td_t_mask, None))
     else:
         if variant == "mixed":
-            pushes += [(td_t_mask, split.keep_tail),
-                       (td_h_mask, split.keep_hub)]
-        pulls += [(bu_t_mask, split.ell_tail, False),
-                  (bu_h_mask, split.ell_hub, True)]
+            pushes += [(td_t_mask, "tail"), (td_h_mask, "hub")]
+        pulls += [(bu_t_mask, "tail"), (bu_h_mask, "hub")]
     next_flags = torch.zeros((b, v), dtype=torch.uint8, device=dev)
     parent = st.parent
-    for lanes, keep in pushes:
-        flags, parent = _topdown_step_kernels_batch(
-            dg, cfg, ell, st.frontier, st.visited, parent, lanes, keep)
+    for lanes, side in pushes:
+        if ell is None:
+            dst_mask = (None if side is None else
+                        split.hub_v if side == "hub" else ~split.hub_v)
+            flags, parent = _topdown_step_batch(
+                dg, cfg, st.frontier, st.visited, parent, lanes, dst_mask)
+        else:
+            keep = (None if side is None else
+                    split.keep_hub if side == "hub" else split.keep_tail)
+            flags, parent = _topdown_step_kernels_batch(
+                dg, cfg, ell, st.frontier, st.visited, parent, lanes, keep)
         next_flags = torch.maximum(next_flags, flags)
-    for lanes, tiles, hub in pulls:
-        flags, parent = _bottomup_step_kernels_batch(
-            dg, cfg, tiles, st.frontier, st.visited, parent, lanes,
-            hub_kernel=hub)
+    for lanes, side in pulls:
+        if ell is None and side == "hub":
+            flags, parent = _hub_pull_batch(dg, cfg, split.hub_rows,
+                                            st.frontier, st.visited, parent,
+                                            lanes)
+        elif ell is None:
+            flags, parent = _bottomup_step_batch(
+                dg, cfg, st.frontier, st.visited, parent, lanes,
+                side=None if side is None else split.tail_pull,
+                chunk=None if side is None else 4 * cfg.bu_chunk,
+                slab=None if side is None else cfg.bu_slab)
+        else:
+            tiles = (ell if side is None else
+                     split.ell_hub if side == "hub" else split.ell_tail)
+            flags, parent = _bottomup_step_kernels_batch(
+                dg, cfg, tiles, st.frontier, st.visited, parent, lanes,
+                hub_kernel=side == "hub")
         next_flags = torch.maximum(next_flags, flags)
-    _, nf, mf = K.frontier_fused_batch(next_flags, dg.deg_ext[:-1],
-                                       packed=False)
+    if ell is None:
+        nf = _i32(next_flags.sum(dim=1))
+        mf = _i32(torch.where(next_flags != 0,
+                              dg.deg_ext[:-1].to(torch.int64), 0).sum(dim=1))
+    else:
+        _, nf, mf = K.frontier_fused_batch(next_flags, dg.deg_ext[:-1],
+                                           packed=False)
     cur = st.cur_level + 1
     visited = torch.maximum(st.visited, next_flags)
     level = torch.where(next_flags != 0, cur, st.level)
@@ -611,13 +886,20 @@ def reachable_variants(cfg: BFSConfig) -> tuple[str, ...]:
     return BATCH_VARIANTS
 
 
-def make_batch_step(dg: DeviceGraph, cfg: BFSConfig, variant: str, ell):
-    """`BatchState -> BatchState` for one cohort step variant over `ell`
-    (the graph's ELL tiles, `GraphSession.ell_tiles`)."""
+def make_batch_step(dg: DeviceGraph, cfg: BFSConfig, variant: str,
+                    ell=None):
+    """`BatchState -> BatchState` for one cohort step variant. The
+    formulation is resolved here, once (`kernels_enabled`): the kernels
+    over `ell` (the graph's ELL tiles, `GraphSession.ell_tiles`; built and
+    kept on `dg` when None), or gather, which builds no tiles."""
     if variant not in BATCH_VARIANTS:
         raise ValueError(f"variant must be one of {BATCH_VARIANTS}, "
                          f"got {variant!r}")
-    split = _hub_split(dg, cfg, ell) if cfg.hub_split else None
+    ell = _resolve_ell(dg, cfg, ell)
+    split = None
+    if cfg.hub_split:
+        split = (_gather_split(dg, cfg) if ell is None
+                 else _hub_split(dg, cfg, ell))
     return functools.partial(_advance_batch, dg, cfg, ell, split, variant)
 
 

@@ -35,11 +35,19 @@ slot, and the pull's merges write into a `[v_pad + 1]` buffer whose last
 slot is sliced off (the reference relies on `mode="drop"` scatters; a
 clamp would write into vertex `v_pad - 1`).
 
+With kernels off (`core.bfs.kernels_enabled`) a rank runs the JAX
+package's XLA formulation instead, the gather steps over its CSR block
+(`_local_topdown`, `_local_bottomup`, through `core.bfs`'s gather
+helpers): no tile is built and no kernel launches; the statistics are two
+plain sums and the bitmap exchange packs with `frontier.pack`. The
+reference's gather pull splits its row queue at the hub floor under
+`hub_split`; a row's first hit does not depend on the pass that scans it,
+so one pass here gives the same bits.
+
 The host branches on the direction: each level's one host read (`scalars`)
 carries the replicated frontier count and the next direction, decided on
-the device. The JAX package's XLA formulation is not ported, and
-`BFSConfig.hub_split` is ignored here, as the reference's kernel path
-ignores it.
+the device. `BFSConfig.hub_split` changes nothing else here, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -52,7 +60,9 @@ import torch.distributed as dist
 
 from repro_torch.core import ell as ELL
 from repro_torch.core import frontier as fr
-from repro_torch.core.bfs import INT_MAX, BFSConfig, _f32
+from repro_torch.core.bfs import (INT_MAX, BFSConfig, _f32,
+                                   _gather_first_hits, _gather_push,
+                                   kernels_enabled)
 from repro_torch.core.partition import (PartitionedGraph, PartitionPlan,
                                         unpermute, unpermute_ids)
 from repro_torch.device import resolve_device
@@ -76,13 +86,17 @@ class HybridConfig:
 # ------------------------------------------------------------- collectives --
 
 def _or_exchange(flags: torch.Tensor, hcfg: HybridConfig, group,
-                 deg: torch.Tensor) -> torch.Tensor:
+                 deg: torch.Tensor, use_kernels: bool) -> torch.Tensor:
     """Merge the ranks' next-frontier flags: the push/pull of Algs. 2/3.
 
-    `bitmap` sends the fused frontier kernel's packed words (V/8 bytes)."""
+    `bitmap` sends the packed words (V/8 bytes): the fused frontier
+    kernel's, or `frontier.pack`'s in the gather formulation."""
     if hcfg.exchange == "psum":
         return C.or_allreduce_flags(flags, group)
-    packed, _, _ = K.frontier_fused(flags, deg, packed=True)
+    if use_kernels:
+        packed, _, _ = K.frontier_fused(flags, deg, packed=True)
+    else:
+        packed = fr.pack(flags)
     return fr.unpack(C.or_allreduce_bitmap(packed, group), flags.shape[0])
 
 
@@ -124,10 +138,51 @@ def _local_bottomup_kernels(cfg: BFSConfig, v_pad: int, ell, visited,
     return nxt[:v_pad], pcand[:v_pad]
 
 
-def _frontier_stats(flags, deg, dec_hub: int):
-    """(nf, mf_full, mf_dec) of `flags`: one fused kernel pass, plus the
-    hub prefix's edge mass under the hub coordinator (`dec_hub` > 0)."""
-    _, nf, mf_full = K.frontier_fused(flags, deg, packed=False)
+def _local_topdown(v_pad: int, indptr, indices, row_gid, visited,
+                   frontier):
+    """Gather push over this rank's CSR block, the JAX package's
+    `repro/core/hybrid_bfs.py:85`: (next_flags, parent candidates), both
+    [v_pad]. Local rows whose global id is in the frontier push their
+    slots; phantom rows (id `v_pad`) read the sentinel slot of
+    `frontier_ext` and push nothing."""
+    frontier_ext = torch.cat([frontier, frontier.new_zeros(1)])
+    lrow = (frontier_ext[row_gid] != 0).nonzero()[:, 0]
+    pcand = torch.full((1, v_pad), INT_MAX, dtype=torch.int32,
+                       device=frontier.device)
+    _gather_push(indices, indptr[lrow], indptr[lrow + 1] - indptr[lrow],
+                 row_gid[lrow], torch.zeros_like(lrow), visited[None],
+                 pcand)
+    return (pcand[0] != INT_MAX).to(torch.uint8), pcand[0]
+
+
+def _local_bottomup(v_pad: int, indptr, indices, row_gid, visited,
+                    frontier):
+    """Gather pull over this rank's unvisited rows, the JAX package's
+    `repro/core/hybrid_bfs.py:124`: (next_flags, parent candidates), both
+    [v_pad]. Phantom rows count as visited through `visited_ext`; a found
+    row's candidate is a real vertex, so the flags are `pcand != INT_MAX`.
+    The candidates min-merge by global id into a `[v_pad + 1]` buffer
+    whose last slot is sliced off."""
+    visited_ext = torch.cat([visited, visited.new_ones(1)])
+    ldeg = indptr[1:] - indptr[:-1]
+    lrow = ((visited_ext[row_gid] == 0) & (ldeg > 0)).nonzero()[:, 0]
+    found, par = _gather_first_hits(indices, indptr[lrow], ldeg[lrow],
+                                    torch.zeros_like(lrow), frontier[None])
+    pcand = torch.full((v_pad + 1,), INT_MAX, dtype=torch.int32,
+                       device=frontier.device)
+    pcand.scatter_reduce_(0, row_gid[lrow].to(torch.int64),
+                          torch.where(found, par, INT_MAX), "amin")
+    return (pcand[:v_pad] != INT_MAX).to(torch.uint8), pcand[:v_pad]
+
+
+def _frontier_stats(use_kernels: bool, flags, deg, dec_hub: int):
+    """(nf, mf_full, mf_dec) of `flags`: one fused kernel pass (two plain
+    sums in the gather formulation), plus the hub prefix's edge mass under
+    the hub coordinator (`dec_hub` > 0)."""
+    if use_kernels:
+        _, nf, mf_full = K.frontier_fused(flags, deg, packed=False)
+    else:
+        nf, mf_full = fr.count(flags), fr.edge_count(flags, deg)
     if not dec_hub:
         return nf, mf_full, mf_full
     return nf, mf_full, fr.edge_count(flags[:dec_hub], deg[:dec_hub])
@@ -209,20 +264,30 @@ def make_hybrid_stepper(pg: PartitionedGraph,
     """This rank's level-by-level pieces over `group` (None: the default
     group), on `device` (None: the current CUDA device).
 
-    `ell` is this rank's tiles (`GraphSession.hybrid_ell` caches them); when
-    omitted they are built for `dist.get_rank(group)`, and the group must
-    have one rank per partition. The state is a dict of tensors with the
+    The formulation is resolved here, once (`kernels_enabled(hcfg.bfs)`).
+    With kernels, `ell` is this rank's tiles (`GraphSession.hybrid_ell`
+    caches them); when omitted they are built for `dist.get_rank(group)`.
+    In the gather formulation `ell` is ignored and this rank's CSR block
+    goes to the device instead. Either way the group must have one rank
+    per partition. The state is a dict of tensors with the
     JAX package's stepper fields (`HYBRID_STATE_FIELDS`); its `pcand` is
     this rank's `[v_pad]`, row `rank` of the reference's `[n, v_pad]`, and
     `frontier_edges` in the rows is the full frontier edge mass `mf`.
     """
     plan = pg.plan
     device = resolve_device(device)
-    if ell is None:
+    use_kernels = kernels_enabled(hcfg.bfs)
+    if ell is None or not use_kernels:
         if dist.get_world_size(group) != plan.n_parts:
             raise ValueError(f"the group has {dist.get_world_size(group)} "
                              f"ranks for {plan.n_parts} partitions")
-        ell = ELL.build_hybrid_ell(pg, dist.get_rank(group), device=device)
+        rank = dist.get_rank(group)
+        if use_kernels:
+            ell = ELL.build_hybrid_ell(pg, rank, device=device)
+        else:
+            csr = [torch.from_numpy(np.ascontiguousarray(a[rank])).to(device)
+                   for a in (pg.local_indptr, pg.local_indices,
+                             pg.local_row_gid)]
     v_pad = plan.v_pad
     e_total = pg.total_directed_edges
     cfg = hcfg.bfs
@@ -257,7 +322,10 @@ def make_hybrid_stepper(pg: PartitionedGraph,
 
     def compute_fn(state: dict, bu: bool):
         bu_t, bu_steps = decide(state)
-        if bu:
+        if not use_kernels:
+            step = _local_bottomup if bu else _local_topdown
+            nxt, pc = step(v_pad, *csr, state["visited"], state["frontier"])
+        elif bu:
             nxt, pc = _local_bottomup_kernels(cfg, v_pad, ell,
                                               state["visited"],
                                               state["frontier"])
@@ -267,7 +335,7 @@ def make_hybrid_stepper(pg: PartitionedGraph,
         return nxt, pc, bu_t, bu_steps
 
     def exchange_fn(state: dict, nxt_local, pc_local, bu, bu_steps) -> dict:
-        nxt = _or_exchange(nxt_local, hcfg, group, deg)
+        nxt = _or_exchange(nxt_local, hcfg, group, deg, use_kernels)
         newly = torch.where(state["visited"] != 0, 0, nxt).to(torch.uint8)
         fresh = newly != 0
         pcand = torch.where(fresh, torch.minimum(state["pcand"], pc_local),
@@ -275,7 +343,8 @@ def make_hybrid_stepper(pg: PartitionedGraph,
         lcand = torch.where(fresh, torch.minimum(state["lcand"],
                                                  state["cur"] + 1),
                             state["lcand"])
-        nf, mf_full, mf_dec = _frontier_stats(newly, deg, dec_hub)
+        nf, mf_full, mf_dec = _frontier_stats(use_kernels, newly, deg,
+                                              dec_hub)
         return dict(visited=torch.maximum(state["visited"], newly),
                     frontier=newly, pcand=pcand, lcand=lcand,
                     cur=state["cur"] + 1, bu=bu, bu_steps=bu_steps,

@@ -30,6 +30,14 @@ picks `fused` for one partition and `sharded` for more:
 `n_parts=None` resolves to 1 unless a group with more than one rank exists
 and the graph has at least `AUTO_SHARD_MIN_EDGES` directed edges; then to
 the group's size.
+
+Every path runs in the formulation `core.bfs.kernels_enabled` resolves from
+the query's config: the ELL-tile kernels ("tiles") or the CSR gather steps
+("gather", which builds no tiles). Fault sites (`runtime.faults`) sit
+where the JAX package's do: `device` at query entry, `dispatch` per root
+in Graph500 mode and on the sharded path, and through each backend's
+`fault_ctx` (mode batch|scalar|stepper, kernels tiles|gather) the level
+driver's `straggler` and `dispatch` before each level.
 """
 from __future__ import annotations
 
@@ -54,6 +62,7 @@ from repro_torch.engine.level_loop import (BSPStepBackend,
 from repro_torch.engine.result import (TraversalResult,
                                        edges_traversed_from_levels)
 from repro_torch.engine.session import GraphSession
+from repro_torch.runtime.faults import fault_point
 
 BACKENDS = ("fused", "sharded", "stepper")
 
@@ -229,6 +238,10 @@ class Engine:
                              f"{plan.backend!r} (batched={batched})")
         if control is not None:
             control.check()
+        # Chaos hook: simulated device/memory pressure at query entry
+        # (non-transient `DevicePressure`: the degradation chain, not the
+        # retry loop, is the recovery path).
+        fault_point("device", backend=plan.backend)
         roots_arr = self._normalize_roots(roots)
         if roots_arr.size == 0:
             v = self.graph.num_vertices
@@ -258,17 +271,19 @@ class Engine:
 
     # --------------------------------------------------------- fused path --
 
-    def _cohort_backend(self, cfg: BFSConfig,
-                        bucket: int) -> CohortBatchBackend:
+    def _cohort_backend(self, cfg: BFSConfig, bucket: int,
+                        use_kernels: bool) -> CohortBatchBackend:
         """Cohort driver backend for a batch bucket, step functions cached
-        per (config, bucket, variant); a forced single-direction heuristic
-        has only its one reachable variant."""
+        per (config, formulation, bucket, variant); a forced
+        single-direction heuristic has only its one reachable variant."""
         sess = self.session
-        sess.ensure_kernels()
         dg = sess.device_graph()
-        ell = sess.ell_tiles()
+        ell = None
+        if use_kernels:
+            sess.ensure_kernels()
+            ell = sess.ell_tiles()
         steps = {
-            var: sess.cached(("cohort", cfg, bucket, var),
+            var: sess.cached(("cohort", cfg, use_kernels, bucket, var),
                              lambda v=var: B.make_batch_step(dg, cfg, v, ell))
             for var in B.reachable_variants(cfg)
         }
@@ -288,14 +303,19 @@ class Engine:
     def _bfs_fused(self, roots_arr, cfg, batched, control=None,
                    on_level=None) -> TraversalResult:
         e_und = self.graph.num_undirected_edges
+        use = B.kernels_enabled(cfg)
+        kernels = "tiles" if use else "gather"
         if batched:
             b = len(roots_arr)
             bucket = _bucket_batch(b)
-            backend = self._cohort_backend(cfg, bucket)
+            backend = self._cohort_backend(cfg, bucket, use)
+            # How the driver's chaos hooks describe this dispatch: the
+            # handle schedules like [kernels=tiles] or [mode=batch] use.
+            backend.fault_ctx = dict(mode="batch", kernels=kernels)
             lanes = self._lanes(roots_arr, bucket)
             # Nothing a first run pays (library loads, first launches,
             # first allocations) lands inside the timed search.
-            self.session.warm(("cohort_warm", cfg, bucket),
+            self.session.warm(("cohort_warm", cfg, use, bucket),
                               lambda: backend.warm(lanes))
             if control is not None:
                 control.check()      # the warm-up may outlive a deadline
@@ -314,13 +334,15 @@ class Engine:
                                    "fused", 1, e_und,
                                    batch_level_stats=rows)
         # Graph500 mode: one root at a time through the B=1 cohort.
-        backend = self._cohort_backend(cfg, 1)
-        self.session.warm(("cohort_warm", cfg, 1),
+        backend = self._cohort_backend(cfg, 1, use)
+        backend.fault_ctx = dict(mode="scalar", kernels=kernels)
+        self.session.warm(("cohort_warm", cfg, use, 1),
                           lambda: backend.warm(self._lanes(roots_arr[:1], 1)))
         parents, levels, per_root = [], [], []
         for r in roots_arr:
             if control is not None:
                 control.check()
+            fault_point("dispatch", mode="scalar", kernels=kernels)
             lanes = self._lanes(np.asarray([r]), 1)
             t0 = time.perf_counter()
             parent, level, _rows, _timings = LevelDriver(backend).run(
@@ -336,28 +358,34 @@ class Engine:
 
     # ------------------------------------------------------- stepper path --
 
-    def _stepper_backend_single(self, cfg: BFSConfig) -> SingleStepBackend:
-        """Single-root driver backend; its step is cached per config."""
+    def _stepper_backend_single(self, cfg: BFSConfig,
+                                use_kernels: bool) -> SingleStepBackend:
+        """Single-root driver backend; its step is cached per (config,
+        formulation)."""
         sess = self.session
-        sess.ensure_kernels()
         dg = sess.device_graph()
-        ell = sess.ell_tiles()
-        step = sess.cached(("stepper_step", cfg),
+        ell = None
+        if use_kernels:
+            sess.ensure_kernels()
+            ell = sess.ell_tiles()
+        step = sess.cached(("stepper_step", cfg, use_kernels),
                            lambda: B.make_level_step(dg, cfg, ell))
         return SingleStepBackend(
             lambda root: B.init_state(dg, root), step,
             lambda st: B.state_scalars(dg, cfg, st), dg.num_vertices,
             sess.device)
 
-    def _stepper_backend_sharded(self, hcfg: HybridConfig,
-                                 pkey) -> BSPStepBackend:
+    def _stepper_backend_sharded(self, hcfg: HybridConfig, pkey,
+                                 use_kernels: bool) -> BSPStepBackend:
         """This rank's BSP driver backend over session-cached pieces."""
         sess = self.session
         group = sess.group_for(pkey[0])
-        sess.ensure_kernels()
         plan, pg = sess.partitioned(*pkey)
-        ell = sess.hybrid_ell(*pkey)
-        pieces = sess.cached(("hybrid_stepper", hcfg) + pkey,
+        ell = None
+        if use_kernels:
+            sess.ensure_kernels()
+            ell = sess.hybrid_ell(*pkey)
+        pieces = sess.cached(("hybrid_stepper", hcfg, use_kernels) + pkey,
                              lambda: make_hybrid_stepper(
                                  pg, hcfg, group, sess.device, ell))
         return BSPStepBackend(pieces, plan, sess.device)
@@ -365,11 +393,15 @@ class Engine:
     def _bfs_stepper(self, roots_arr, hcfg, pkey, on_level=None,
                      control=None) -> TraversalResult:
         n_parts = pkey[0]
-        backend = (self._stepper_backend_single(hcfg.bfs) if n_parts == 1
-                   else self._stepper_backend_sharded(hcfg, pkey))
+        use = B.kernels_enabled(hcfg.bfs)
+        backend = (self._stepper_backend_single(hcfg.bfs, use)
+                   if n_parts == 1
+                   else self._stepper_backend_sharded(hcfg, pkey, use))
+        backend.fault_ctx = dict(mode="stepper",
+                                 kernels="tiles" if use else "gather")
         driver = LevelDriver(backend)
-        wkey = (("stepper_warm", hcfg.bfs) if n_parts == 1
-                else ("stepper_warm", hcfg) + pkey)
+        wkey = (("stepper_warm", hcfg.bfs, use) if n_parts == 1
+                else ("stepper_warm", hcfg, use) + pkey)
         # The warm-up is a whole search too: it honours the control, and an
         # aborted one is not recorded, so the next query warms again.
         try:
@@ -412,20 +444,30 @@ class Engine:
         one warm-up search per (config, partitioning)."""
         sess = self.session
         group = sess.group_for(pkey[0])
-        sess.ensure_kernels()
         plan, pg = sess.partitioned(*pkey)
-        ell = sess.hybrid_ell(*pkey)
+        use = B.kernels_enabled(hcfg.bfs)
+        kernels = "tiles" if use else "gather"
+        ell = None
+        if use:
+            sess.ensure_kernels()
+            ell = sess.hybrid_ell(*pkey)
         search_fn, root_mapper = sess.cached(
-            ("hybrid_search", hcfg) + pkey,
+            ("hybrid_search", hcfg, use) + pkey,
             lambda: make_hybrid_search(pg, hcfg, group, sess.device, ell))
         roots_new = [root_mapper(int(r)) for r in roots_arr]
-        sess.warm(("sharded_warm", hcfg) + pkey,
+        sess.warm(("sharded_warm", hcfg, use) + pkey,
                   lambda: search_fn(roots_new[0]))
         outs, per_root = [], []
+        if batched:
+            # One fault point for the whole batch, as the reference's one
+            # pipelined dispatch has.
+            fault_point("dispatch", mode="sharded", kernels=kernels)
         t_all = time.perf_counter()
         for rn in roots_new:
             if control is not None:
                 control.check()
+            if not batched:
+                fault_point("dispatch", mode="sharded", kernels=kernels)
             t0 = time.perf_counter()
             outs.append(search_fn(rn))
             fence(sess.device)

@@ -31,6 +31,12 @@ state` in place of `step`; the driver fences after each and reports their
 seconds as the row's `compute_s` and `exchange_s` (the paper's Fig. 3
 breakdown). For the other backends `compute_s` is the level's seconds and
 `exchange_s` is 0.0.
+
+Before each level's step the driver passes two fault sites
+(`runtime.faults`): `straggler` (a scheduled delay) and `dispatch` (a
+scheduled raise, before the step runs, so the state is never
+half-advanced), each with the level and the backend's `fault_ctx` (the
+engine's description of the dispatch: mode and formulation).
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ import torch
 
 from repro_torch.core import bfs as B
 from repro_torch.core.hybrid_bfs import finalize_hybrid
+from repro_torch.runtime.faults import fault_point
 
 
 # ------------------------------------------------------------ cancellation --
@@ -338,6 +345,9 @@ class LevelDriver:
                 except (QueryCancelled, QueryDeadlineExceeded) as e:
                     e.per_level_stats = stats
                     raise
+            fctx = getattr(b, "fault_ctx", None) or {}
+            fault_point("straggler", level=pre["cur"], **fctx)
+            fault_point("dispatch", level=pre["cur"], **fctx)
             t0 = time.perf_counter()
             if split:
                 work = b.compute(state, pre)

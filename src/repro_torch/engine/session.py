@@ -16,23 +16,36 @@ partition (`group_for`): the session's own group, else the default group.
 Each rank holds its own session over the same graph.
 
 On a CUDA device the session also builds the kernels (`kernels._build`)
-before its first query, so the build never lands inside a timed search.
+before its first query on the tile formulation, so the build never lands
+inside a timed search. `runtime_stats()` counts what the session built
+(by kind), the warm-ups it ran and the kernel build's seconds.
+
+A build in `cached` passes the `compile` fault site (`runtime.faults`),
+the port's counterpart of the JAX package's trace; a build that raises is
+not cached, so the next query builds again. Construction installs the
+concurrency sanitizer and the fault schedule from the runtime config
+(`REPRO_SANITIZE`, `REPRO_FAULTS`) if none is installed.
 
 Sessions are thread-safe: every cache is guarded by one re-entrant lock
 with double-checked builds.
 """
 from __future__ import annotations
 
-import threading
+import time
 from typing import Any, Callable, Optional
 
 import torch.distributed as dist
+
+from repro_torch.analysis.concurrency import ensure_installed as _ensure_sanitizer
+from repro_torch.analysis.concurrency import make_lock, make_rlock
 
 from repro_torch.core import ell as ELL
 from repro_torch.core import partition as PT
 from repro_torch.core.bfs import DeviceGraph
 from repro_torch.core.graph import Graph
 from repro_torch.device import resolve_device
+from repro_torch.runtime.faults import ensure_installed as _ensure_faults
+from repro_torch.runtime.faults import fault_point
 
 
 class GraphSession:
@@ -43,9 +56,8 @@ class GraphSession:
     `default_hub_edge_fraction` are their partitioning defaults.
 
     The JAX package's session also keeps a persistent artifact cache, a
-    background pre-warm, graph fingerprints, fault points and a kernel
-    contract gate; none of those is ported yet (ROADMAP.md queue 1, items
-    9-10).
+    background pre-warm, graph fingerprints and a kernel contract gate;
+    none of those is ported yet (ROADMAP.md queue 1, items 9-10).
     """
 
     def __init__(self, graph: Graph, device=None, *, group=None,
@@ -59,12 +71,17 @@ class GraphSession:
         self.default_strategy = default_strategy
         self.default_hub_edge_fraction = default_hub_edge_fraction
         self._group = group
-        self._lock = threading.RLock()
+        _ensure_sanitizer()              # REPRO_SANITIZE instruments these
+        self._lock = make_rlock("session")
+        self._stats_lock = make_lock("session.stats")
         self._device_graph: Optional[DeviceGraph] = None
         self._partitions: dict = {}
         self._objects: dict[Any, Any] = {}
         self._warmed: set = set()
         self._kernels_built = False
+        self._builds: dict = {}          # kind (key[0]) -> builds
+        self._kernel_build_s = 0.0
+        _ensure_faults()                 # REPRO_FAULTS chaos schedule, if any
 
     def device_graph(self) -> DeviceGraph:
         """CSR tensors on the session's device (built once)."""
@@ -155,18 +172,27 @@ class GraphSession:
         if self.device.type != "cuda" or self._kernels_built:
             return
         from repro_torch.kernels import _build
+        t0 = time.perf_counter()
         _build.build_all()             # takes the build's own lock
+        with self._stats_lock:
+            self._kernel_build_s += time.perf_counter() - t0
         self._kernels_built = True
 
     def cached(self, key, build: Callable[[], Any]) -> Any:
-        """Build `key`'s object once (step functions, tiles, backends)."""
+        """Build `key`'s object once (step functions, tiles, backends).
+        A build passes the `compile` fault site first; one that raises is
+        not cached."""
         got = self._objects.get(key)
         if got is None:
             with self._lock:
                 got = self._objects.get(key)
                 if got is None:
+                    fault_point("compile", key=key)
                     got = build()
                     self._objects[key] = got
+                    with self._stats_lock:
+                        self._builds[key[0]] = self._builds.get(key[0],
+                                                                0) + 1
         return got
 
     def warm(self, key, run: Callable[[], Any]) -> None:
@@ -178,3 +204,32 @@ class GraphSession:
             if key not in self._warmed:
                 run()
                 self._warmed.add(key)
+
+    def runtime_stats(self) -> dict:
+        """What this session built: cached objects by kind (the key's first
+        element: "ell", "cohort", "stepper_step", ...), the warm-up
+        searches run, and the seconds its call of the kernel build took
+        (a wait for another session's build included; near 0 when the
+        libraries were built already, 0.0 on the CPU)."""
+        with self._lock, self._stats_lock:
+            return dict(builds=dict(self._builds),
+                        warmups=len(self._warmed),
+                        kernel_build_s=self._kernel_build_s)
+
+    def signal_close(self) -> None:
+        """The server's teardown step that asks a session's background work
+        to stop before anything is joined. The port's session starts no
+        thread (the JAX package's pre-warm is not ported), so there is
+        nothing to signal."""
+
+    def close(self, timeout: Optional[float] = None) -> bool:
+        """Drop the session's device tensors and step functions (a later
+        query builds them again); True, since no thread is left to join.
+        Call it once no query runs on the session (`BFSServer.close` joins
+        its workers first)."""
+        del timeout
+        with self._lock:
+            self._device_graph = None
+            self._objects.clear()
+            self._warmed.clear()
+        return True

@@ -15,13 +15,16 @@ CUDA kernels take any shape, so nothing is padded here (the packing
 kernel takes any V and any row start, the decode attention any cache
 length S).
 
-`LAUNCHES` counts kernel launches per wrapper; only a launch adds to it.
+`LAUNCHES` counts kernel launches per wrapper; only a launch adds to it,
+under a lock, so concurrent server workers lose no count.
 
 The JAX wrappers also check that a lane's frontier fits the TPU's VMEM
 (`check_frontier_residency`). That is a TPU limit with no counterpart here:
 the CUDA kernels gather from device memory through L2.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -37,9 +40,20 @@ LAUNCHES = {"bottomup_batch": 0, "topdown_batch": 0,
             "decode_attention": 0}
 
 
+_launches_lock = threading.Lock()
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _launches_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(name: str) -> None:
+    """One launch of wrapper `name`: `LAUNCHES[name] += 1` under the lock
+    (the read-add-write is not atomic across threads)."""
+    with _launches_lock:
+        LAUNCHES[name] += 1
 
 
 def _no_rows(b: int, device):
@@ -65,7 +79,7 @@ def bottomup_batch(deg, nbrs, frontier, *, slab: int = 32):
     if not deg.is_cuda:
         return _bu.bottomup_batch_plain(deg, nbrs, frontier)
     out = _bu.bottomup_batch_cuda(deg.contiguous(), nbrs, frontier)
-    LAUNCHES["bottomup_batch"] += 1
+    _count("bottomup_batch")
     return out
 
 
@@ -81,7 +95,7 @@ def hub_bottomup_batch(deg, nbrs, frontier):
     if not deg.is_cuda:
         return _hub.hub_bottomup_batch_plain(deg, nbrs, frontier)
     out = _hub.hub_bottomup_batch_cuda(deg.contiguous(), nbrs, frontier)
-    LAUNCHES["hub_bottomup_batch"] += 1
+    _count("hub_bottomup_batch")
     return out
 
 
@@ -99,7 +113,7 @@ def topdown_batch(deg, nbrs, visited):
     if not deg.is_cuda:
         return _td.topdown_batch_plain(deg, nbrs, visited)
     fresh = _td.topdown_batch_cuda(deg.contiguous(), nbrs, visited)
-    LAUNCHES["topdown_batch"] += 1
+    _count("topdown_batch")
     return fresh
 
 
@@ -121,7 +135,7 @@ def topdown_push_batch(deg, nbrs, rows, visited, pcand, keep=None) -> None:
         _td.topdown_push_batch_plain(deg, nbrs, rows, visited, pcand, keep)
         return
     _td.topdown_push_cuda(deg.contiguous(), nbrs, rows, visited, pcand, keep)
-    LAUNCHES["topdown_push_batch"] += 1
+    _count("topdown_push_batch")
 
 
 def frontier_fused_batch(flags, deg, *, packed=True):
@@ -138,7 +152,7 @@ def frontier_fused_batch(flags, deg, *, packed=True):
     if not flags.is_cuda:
         return _ff.frontier_fused_batch_plain(flags, deg, packed=packed)
     out = _ff.frontier_fused_batch_cuda(flags, deg, packed=packed)
-    LAUNCHES["frontier_fused_batch"] += 1
+    _count("frontier_fused_batch")
     return out
 
 
@@ -156,7 +170,7 @@ def bottomup(deg, nbrs, frontier, *, slab: int = 32):
         return _bu.bottomup_plain(deg, nbrs, frontier)
     found, parent = _bu.bottomup_batch_cuda(deg.contiguous()[None], nbrs,
                                             frontier[None])
-    LAUNCHES["bottomup"] += 1
+    _count("bottomup")
     return found[0], parent[0]
 
 
@@ -168,7 +182,7 @@ def hub_bottomup(deg, nbrs, frontier):
         return _hub.hub_bottomup_plain(deg, nbrs, frontier)
     found, parent = _hub.hub_bottomup_batch_cuda(deg.contiguous()[None], nbrs,
                                                  frontier[None])
-    LAUNCHES["hub_bottomup"] += 1
+    _count("hub_bottomup")
     return found[0], parent[0]
 
 
@@ -183,7 +197,7 @@ def topdown(deg, nbrs, visited):
     if not deg.is_cuda:
         return _td.topdown_plain(deg, nbrs, visited)
     out = _td.topdown_cuda(deg.contiguous(), nbrs, visited)
-    LAUNCHES["topdown"] += 1
+    _count("topdown")
     return out
 
 
@@ -197,7 +211,7 @@ def topdown_push(deg, nbrs, rows, visited, pcand, keep=None) -> None:
         return
     _td.topdown_push_cuda(deg.contiguous()[None], nbrs, rows, visited[None],
                           pcand[None], keep)
-    LAUNCHES["topdown_push"] += 1
+    _count("topdown_push")
 
 
 def frontier_fused(flags, deg, *, packed=True):
@@ -213,7 +227,7 @@ def frontier_fused(flags, deg, *, packed=True):
         return _ff.frontier_fused_plain(flags, deg, packed=packed)
     bitmap, nf, mf = _ff.frontier_fused_batch_cuda(flags[None], deg,
                                                    packed=packed)
-    LAUNCHES["frontier_fused"] += 1
+    _count("frontier_fused")
     return (None if bitmap is None else bitmap[0]), nf[0], mf[0]
 
 
@@ -238,5 +252,5 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, logit_cap=0.0):
                                           logit_cap=logit_cap)
     out = _da.decode_attention_cuda(q, k_cache, v_cache, cache_len,
                                     logit_cap=logit_cap)
-    LAUNCHES["decode_attention"] += 1
+    _count("decode_attention")
     return out

@@ -1,0 +1,161 @@
+"""`RuntimeConfig`: the port's process-wide runtime configuration.
+
+The port's counterpart of the JAX package's `runtime/config.py`, with the
+fields this package reads, under the same strict precedence:
+
+    explicit argument  >  environment variable  >  built-in default
+
+Environment variables (all optional):
+
+=====================  =====================================================
+REPRO_KERNELS          'auto' | 'off': the BFS formulation when
+                       `BFSConfig.backend_kernels` is None. 'auto' runs the
+                       ELL-tile kernels ("tiles") on every device, 'off'
+                       the CSR gather formulation ("gather"); see
+                       `repro_torch.core.bfs.kernels_enabled`. The JAX
+                       package's 'on' (its kernels off the TPU too) is
+                       what 'auto' already does here, so it is refused
+REPRO_FAULTS           fault-injection schedule (see
+                       `repro_torch.runtime.faults`; '' = disabled). Chaos
+                       testing only
+REPRO_FAULTS_SEED      int seed for probabilistic fault selectors
+REPRO_SANITIZE         '1'/'0': concurrency sanitizer (instrumented lock and
+                       timer wrappers, `repro_torch.analysis.concurrency`).
+                       Testing only
+=====================  =====================================================
+
+The JAX package's other fields (the artifact cache, pre-warm, plan sharing,
+Pallas interpret mode, fake device count, tcmalloc, the VMEM budget and
+strict contracts) have nothing to configure here yet (ROADMAP.md queue 1
+items 9-10).
+
+The module keeps one process-wide singleton (`get_runtime_config`), replaced
+by `configure(...)` and scoped by the `runtime_scope(...)` context manager
+(tests).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import threading
+from typing import Optional
+
+_KERNELS = ("auto", "off")
+
+
+def _parse_bool(text: str, *, name: str) -> bool:
+    s = str(text).strip().lower()
+    if s in ("1", "true", "yes", "on"):
+        return True
+    if s in ("0", "false", "no", "off", ""):
+        return False
+    raise ValueError(f"{name}: cannot parse boolean {text!r}")
+
+
+def _parse_kernels(text: str, *, name: str) -> str:
+    s = str(text).strip().lower()
+    if s in ("0", "false", "no"):
+        return "off"
+    if s not in _KERNELS:
+        raise ValueError(f"{name}: want one of {_KERNELS} ('auto' already "
+                         f"runs the kernels on every device), got {text!r}")
+    return s
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeConfig:
+    """Validated, immutable runtime configuration (see module docstring).
+
+    Build with `RuntimeConfig.resolve(...)` so env overrides apply; the bare
+    constructor takes the values as final (the "explicit argument" tier).
+    """
+
+    kernel_backend: str = "auto"             # BFSConfig.backend_kernels=None
+    faults: Optional[str] = None             # fault schedule ('' / None = off)
+    faults_seed: int = 0
+    sanitize: bool = False                   # instrumented locks/timers
+
+    def __post_init__(self):
+        if self.kernel_backend not in _KERNELS:
+            raise ValueError(f"kernel_backend: want one of {_KERNELS} "
+                             f"('auto' already runs the kernels on every "
+                             f"device), got {self.kernel_backend!r}")
+        if self.faults is not None and not str(self.faults).strip():
+            object.__setattr__(self, "faults", None)
+        if self.faults is not None:
+            # Validate the schedule grammar eagerly: a typo'd REPRO_FAULTS
+            # must fail loudly at config time, not silently inject nothing.
+            from repro_torch.runtime.faults import parse_schedule
+            parse_schedule(self.faults)
+
+    @classmethod
+    def resolve(cls, env: Optional[dict] = None, **explicit) -> "RuntimeConfig":
+        """Defaults <- env <- explicit kwargs (later tiers win).
+
+        Explicit kwargs set to None mean "not given" and fall through to
+        the env/default tiers.
+        """
+        env = os.environ if env is None else env
+        values: dict = {}
+        if "REPRO_KERNELS" in env:
+            values["kernel_backend"] = _parse_kernels(env["REPRO_KERNELS"],
+                                                      name="REPRO_KERNELS")
+        if "REPRO_FAULTS" in env:
+            values["faults"] = env["REPRO_FAULTS"] or None
+        if "REPRO_FAULTS_SEED" in env:
+            values["faults_seed"] = int(env["REPRO_FAULTS_SEED"])
+        if "REPRO_SANITIZE" in env:
+            values["sanitize"] = _parse_bool(env["REPRO_SANITIZE"],
+                                             name="REPRO_SANITIZE")
+        for key, val in explicit.items():
+            if val is None:
+                continue
+            values[key] = val
+        return cls(**values)
+
+
+# ------------------------------------------------------- process singleton --
+
+_lock = threading.Lock()
+_current: Optional[RuntimeConfig] = None
+
+
+def get_runtime_config() -> RuntimeConfig:
+    """The process-wide `RuntimeConfig` (env-resolved on first use)."""
+    global _current
+    if _current is None:
+        with _lock:
+            if _current is None:
+                _current = RuntimeConfig.resolve()
+    return _current
+
+
+def configure(**explicit) -> RuntimeConfig:
+    """Replace the process config: explicit args > env > defaults."""
+    global _current
+    with _lock:
+        _current = RuntimeConfig.resolve(**explicit)
+        return _current
+
+
+def reset_runtime_config() -> None:
+    """Drop the singleton; the next `get_runtime_config` re-reads the env."""
+    global _current
+    with _lock:
+        _current = None
+
+
+@contextlib.contextmanager
+def runtime_scope(**explicit):
+    """Temporarily install a config (tests); restores the previous one."""
+    global _current
+    with _lock:
+        prev = _current
+        _current = RuntimeConfig.resolve(**explicit)
+        cfg = _current
+    try:
+        yield cfg
+    finally:
+        with _lock:
+            _current = prev

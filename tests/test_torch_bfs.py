@@ -293,13 +293,13 @@ def test_fused_path_warms_each_bucket_before_timing(monkeypatch):
     res = eng.bfs([0, 11])
     assert calls[:3] == list(TB.reachable_variants(cfg))
     assert len(calls) == 3 + len(res.batch_level_stats)
-    assert ("cohort_warm", cfg, 8) in eng.session._warmed
+    assert ("cohort_warm", cfg, True, 8) in eng.session._warmed
     calls.clear()
     res = eng.bfs([0, 11, 5])                 # bucket 8 again
     assert len(calls) == len(res.batch_level_stats)
     calls.clear()
     res = eng.bfs([0, 11], batched=False)     # bucket 1
-    assert ("cohort_warm", cfg, 1) in eng.session._warmed
+    assert ("cohort_warm", cfg, True, 1) in eng.session._warmed
     assert calls[:3] == list(TB.reachable_variants(cfg))
     assert len(calls) == 3 + sum(int(n) + 1 for n in res.num_levels)
     one = TB.BFSConfig(heuristic="topdown")   # one reachable variant

@@ -3,11 +3,12 @@
 * an AST scan of `src/repro_torch/**` and `chip_smoke.py` for imports of
   `jax` or `repro`;
 * a subprocess that blocks both on `sys.meta_path`, imports the port and
-  runs CPU searches on every path (unsplit, hub split, stepper, `bfs()`)
-  and the LLM serving entry point at smoke size;
-* `Engine(g)` and the serving entry point with no device ask for CUDA and
-  raise without it, a partitioned query and `parallel.ranks` too (a rank's
-  device is never a quiet CPU);
+  runs CPU searches on every path (unsplit, hub split, stepper, `bfs()`,
+  the gather formulation), `BFSServer` queries (batched and streamed) and
+  the LLM serving entry point at smoke size;
+* `Engine(g)`, `BFSServer` and the serving entry point with no device ask
+  for CUDA and raise without it, a partitioned query and `parallel.ranks`
+  too (a rank's device is never a quiet CPU);
 * the BFS path (and the interop module) does not import the LLM serving
   modules (the port's counterpart of the JAX package's DC001 quarantine),
   and the serving path does not import the BFS engine;
@@ -72,6 +73,12 @@ res = eng.bfs([0, 5, 9], validate=True)
 eng.bfs([0, 5], BFSConfig(hub_split=True, hub_deg=32), validate=True)
 eng.bfs([0, 5], backend="stepper", validate=True)
 bfs(g, 0, device="cpu")
+eng.bfs([0, 5], BFSConfig(backend_kernels=False), validate=True)
+from repro_torch.engine import BFSServer
+with BFSServer({"g": g}, device="cpu") as server:
+    server.submit("g", [0, 5], client="a").result(60).validate(g)
+    h = server.submit("g", 9, stream=True, client="b")
+    assert len(list(h.stream(60))) == int(h.result(60).num_levels[0]) + 1
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
                for m in sys.modules)
 print("levels", int(res.num_levels.max()))
@@ -103,6 +110,29 @@ def test_engine_without_device_needs_cuda(monkeypatch):
         Engine(g, device="cuda")
     res = Engine(g, device="cpu").bfs(int(np.argmax(g.degrees)))
     assert res.parent.shape == (1, g.num_vertices)
+
+
+def test_server_without_device_needs_cuda(monkeypatch):
+    from repro_torch.engine import BFSServer, GraphSession
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = TG.rmat(6, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BFSServer({"g": g})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BFSServer({"g": g}, device="cuda")
+    from repro_torch.launch import bfs_serve
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bfs_serve.main(["--graphs", "1", "--scale", "6"])
+    server = BFSServer(autostart=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        server.register("g", g)
+    server.register("g", GraphSession(g, device="cpu"))
+    server.start()
+    try:
+        assert server.submit("g", 0).result(60).parent.shape == \
+            (1, g.num_vertices)
+    finally:
+        server.close()
 
 
 def test_partitioned_paths_without_device_need_cuda(monkeypatch, tmp_path):

@@ -131,7 +131,7 @@ def test_stepper_streaming_and_cancellation():
     with pytest.raises(QueryCancelled) as info:
         eng.bfs(roots, cfg, backend="stepper", control=ctl)
     assert [len(s) for s in info.value.per_level_stats] == [1]
-    assert ("stepper_warm", cfg) not in eng.session._warmed
+    assert ("stepper_warm", cfg, True) not in eng.session._warmed
 
 
 class _CancelAfter(QueryControl):
