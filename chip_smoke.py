@@ -80,8 +80,12 @@ a nonzero exit; nothing is caught):
    the wire, the group's backend. The times are of P ranks sharing one
    card over gloo, not of a multi-GPU run.
 5v. The BFS server (`repro_torch.engine.BFSServer`, `launch.bfs_serve`)
-   on the card. Load: two sessions of the --scale graph (each its own CSR
-   and tiles), `bfs_serve.run_load` with 8 clients x 4 queries x 4 roots,
+   on the card. Load: two sessions of the --scale graph (plan sharing
+   on, the default, so one CSR, one tile set and one cohort plan set
+   serve both: checked in each session's `cache_info` and by identity,
+   with the peak device memory over the load and the bytes of the one
+   CSR and the one tile set),
+   `bfs_serve.run_load` with 8 clients x 4 queries x 4 roots,
    every 4th query streamed (the stepper), queue depth 64, 16 in flight a
    client; launch counts zeroed after run_load's warm-ups, just before the
    clients start, and read just after: rows 1-3 (the fused dispatches)
@@ -106,6 +110,26 @@ a nonzero exit; nothing is caught):
    `DevicePressure`, `failed`),
    the breaker's trip and recovery, and the two cancel probes on a
    512-level path.
+5r. The runtime layer (`runtime.artifact_cache`, pre-warm,
+   `bfs_serve.run_restart_probe`) on the card: child processes in turn
+   on a fresh cache dir, each attaching the --scale graph from the file
+   phase 5s saved and timing attach plus its first fused query (one
+   root). The cold child compiles the four kernel libraries with nvcc and
+   builds its three cohort plans; the warm one must run 0 nvcc compiles,
+   load all four libraries from the cache, build 0 cohort plans on its
+   query path (its pre-warm loaded all three, 0 failed) and launch rows
+   1-3; then the bottom-up library's entry is replaced with garbage and
+   a third child must evict it, compile that one source again and load
+   the rest. All three children's trees are equal bit for bit, pass the
+   Graph500 check and equal the same root through `Engine.bfs` in the
+   gather formulation (plain PyTorch, no kernel launched) in this
+   process. Then the chaos probe's cache phase
+   (`bfs_serve.run_cache_chaos`) on the phase-3 graph: a failed plan
+   record load is evicted, built again, and the levels stay bitwise
+   equal. Printed: cold and warm start, the cold nvcc seconds, the
+   library load seconds, the pre-warm's seconds, the hit rate, and each
+   start's session seconds: the kernels made ready, the graph hashed,
+   the CSR uploaded, the tiles built.
 6. The serving path at gemma2-9b's full width (42 layers, bf16, random
    weights from --seed), after the BFS phases' tensors are freed:
    `launch.serve.serve` (what `main` runs) with batch 4, a 4,200-token
@@ -518,6 +542,10 @@ def phase_parity(scale, rng):
     same_trees(a, b, "stepper")
     assert stepper_rows(a) == stepper_rows(b), "stepper rows differ"
     log(f"  stepper: directions {[r[1] for r in stepper_rows(a)[0]]}")
+    # closing takes the sessions' plans and tiles back from the process's
+    # plan registry, so later phases share nothing with these
+    gpu.session.close()
+    cpu.session.close()
     return g
 
 
@@ -1431,6 +1459,7 @@ def bfs_paths(args, rng, dev, record, errs):
         for row in prof["top"]:
             log(f"    {row['device_ms']:10.2f} ms {row['calls']:6d}x "
                 f"{row['op']}")
+    engine.session.close()      # its plans and tiles leave the registry
     return entries, g
 
 
@@ -1616,10 +1645,11 @@ def sharded_kernel_checks(calls, device):
                 levels_checked={k: v[0][1] for k, v in picked.items()})
 
 
-def sharded_phase(args, g16, g22, rng, record, entries):
+def sharded_phase(args, g16, g22, rng, record, entries, path22):
     """Phase 5s: the partitioned BSP search on gloo ranks that share the
     card. Parity at PARITY_SCALE (P = 2 and 4, CUDA ranks against CPU
-    ranks), then the full-size run (P = 4, specialized); the sharded
+    ranks), then the full-size run (P = 4, specialized) on the --scale
+    graph saved to `path22` (phase 5r attaches it too); the sharded
     kernels' counts, errors and times join their `entries`."""
     import tempfile
     from repro_torch.parallel import ranks
@@ -1642,7 +1672,6 @@ def sharded_phase(args, g16, g22, rng, record, entries):
                 f"({rec[f'parity_p{p}_s']:.1f} s); stepper directions "
                 + "; ".join(f"{c['case']}: {''.join(d[0] for d in c['directions'])}"
                             for c in out[0][:3]))
-        path22 = os.path.join(tmp, "full.npz")
         t0 = time.perf_counter()
         save_graph(g22, path22)
         rec["save_s"] = time.perf_counter() - t0
@@ -1702,9 +1731,10 @@ def sharded_phase(args, g16, g22, rng, record, entries):
 
 # ------------------------------------------------------------ the server --
 
-# Phase 5v's load: two sessions ("replicas" of the --scale graph, each with
-# its own CSR and tiles), 8 clients x 4 queries x 4 roots, every 4th query
-# streamed, queue depth 64, 16 queries in flight a client.
+# Phase 5v's load: two sessions ("replicas" of the --scale graph, sharing
+# one CSR, one tile set and one plan set), 8 clients x 4 queries x 4
+# roots, every 4th query streamed, queue depth 64, 16 queries in flight a
+# client.
 SERVER_LOAD = dict(clients=8, queries_per_client=4, batch=4, stream_every=4)
 SERVER_CAPS = dict(max_queue_depth=64, max_inflight_per_client=16)
 SERVER_KERNELS = {"batch": ("bottomup_batch", "topdown_push_batch",
@@ -1715,6 +1745,37 @@ SERVER_NOTE = ("two sessions share one H100: a level's seconds end at a "
                "work too; not solo numbers")
 CANCEL_LEVELS = 512               # the cancel probes' path length
 RECHECK_ROOTS = 32                # roots a gather search in the recheck
+
+
+def plan_sharing(server, graphs, dev) -> dict:
+    """Where each session's cohort plans came from, which session built
+    the tiles, the bytes of the CSR and the tile set, and the peak device
+    memory so far. With sharing on, each plan was built by one session
+    (whichever asked first) and shared by the other, one session built
+    the tiles, and both read one CSR."""
+    import torch
+    info = {n: server.engine(n).session.cache_info() for n in graphs}
+    sources = {n: dict(i["plan_sources"]) for n, i in info.items()}
+    for key in {k for src in sources.values() for k in src}:
+        got = sorted(src[key] for src in sources.values() if key in src)
+        assert got.count("built") == 1 and set(got) <= {"built", "shared"}, \
+            (key, got)
+    holders = [n for n, i in info.items() if i["builds"].get("ell")]
+    assert len(holders) == 1 and info[holders[0]]["builds"]["ell"] == 1, \
+        {n: i["builds"] for n, i in info.items()}
+    tiles = server.engine(holders[0]).session.ell_tiles()
+    assert all(server.engine(n).session.ell_tiles() is tiles for n in graphs)
+    tile_bytes = sum(t.numel() * t.element_size() for b in tiles for t in b)
+    dg = server.engine(holders[0]).session.device_graph()
+    assert all(server.engine(n).session.device_graph() is dg
+               for n in graphs), "the sessions hold two CSRs"
+    csr_bytes = sum(t.numel() * t.element_size()
+                    for t in (dg.indptr, dg.indices, dg.deg_ext))
+    counts = {n: {s: list(src.values()).count(s) for s in set(src.values())}
+              for n, src in sources.items()}
+    return dict(sources=counts, tile_holders=holders, tile_bytes=tile_bytes,
+                csr_bytes=csr_bytes,
+                peak_bytes=torch.cuda.max_memory_allocated(dev))
 
 
 def server_phase(args, g16, g22, rng, record, dev, entries):
@@ -1739,6 +1800,7 @@ def server_phase(args, g16, g22, rng, record, dev, entries):
     # on one of them (how far the two workers overlap); both sessions are
     # warm first, so neither window holds a build or a warm-up search
     graphs = {"replica-0": g22, "replica-1": g22}
+    torch.cuda.reset_peak_memory_stats(dev)
     server = BFSServer(graphs, **SERVER_CAPS)
     cand = np.flatnonzero(g22.degrees > 0)
     for name in graphs:
@@ -1760,6 +1822,7 @@ def server_phase(args, g16, g22, rng, record, dev, entries):
                            keep_results=True,
                            before_clients=ops.reset_launches, **SERVER_LOAD)
     launches = {k: ops.LAUNCHES[k] for k in BFS_KERNELS}
+    rec["sharing"] = sharing = plan_sharing(server, graphs, dev)
     results = m.pop("results")
     submitted = SERVER_LOAD["clients"] * SERVER_LOAD["queries_per_client"]
     assert m["queries"] == submitted
@@ -1833,6 +1896,14 @@ def server_phase(args, g16, g22, rng, record, dev, entries):
         f"session: {one['qps']:.3f} QPS, p50 {one['latency_p50_ms']:.1f} "
         f"ms, {one['teps_sustained'] / 1e9:.4f} GTEPS (two sessions / one: "
         f"{L['qps'] / one['qps']:.2f}x QPS)")
+    log(f"  plan sharing (on): {sharing['sources']}; tiles held by "
+        f"{sharing['tile_holders']} ({sharing['tile_bytes'] / 2**30:.3f} "
+        f"GiB, one set), one CSR ({sharing['csr_bytes'] / 2**30:.3f} GiB) "
+        f"for both; peak device memory over both loads "
+        f"{sharing['peak_bytes'] / 2**30:.3f} GiB on {record['card']} (a "
+        f"session with its own would add "
+        f"{(sharing['tile_bytes'] + sharing['csr_bytes']) / 2**30:.3f} "
+        f"GiB)")
     log(f"  {n_trees} trees pass the Graph500 check and each of their "
         f"{n_roots} roots equals Engine.bfs in the gather formulation on the "
         f"same session ({rec['recheck_s']:.1f} s); 0 failed, 0 "
@@ -1959,6 +2030,107 @@ def server_phase(args, g16, g22, rng, record, dev, entries):
             entry["server_launches"] = launches[entry["name"]]
     rec["seconds"] = time.perf_counter() - t_phase
     log(f"phase 5v: {rec['seconds']:.1f} s")
+
+
+RESTART_ROWS = ("bottomup_batch", "topdown_push_batch",
+                "frontier_fused_batch")
+
+
+def restart_phase(args, g16, g22, rng, record, dev, entries, path22):
+    """Phase 5r: the artifact cache and pre-warm across real restarts
+    (`bfs_serve.run_restart_probe` on the --scale graph file, a fresh
+    cache dir, a garbage library for the third child), then the chaos
+    probe's cache phase on the phase-3 graph. The children's trees are
+    held against the same root through `Engine.bfs` in the gather
+    formulation here (plain PyTorch, no kernel launched), so a cached
+    library that is loadable but wrong cannot pass by agreeing with
+    itself. Rows 1-3's launches in the warm child join their
+    `entries`."""
+    import tempfile
+    from repro_torch.core.bfs import BFSConfig
+    from repro_torch.engine import Engine, GraphSession
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch import bfs_serve
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cache_") as cache:
+        out = bfs_serve.run_restart_probe(cache, graph_path=path22,
+                                          device="cuda",
+                                          corrupt_library=True,
+                                          timeout=RANK_TIMEOUT)
+    trees = out.pop("trees")
+    ch = out["children"]
+    n_lib = len(_build.SOURCES)
+    assert out["cold_compiles"] == n_lib, out["cold_compiles"]
+    assert out["warm_compiles"] == 0, out["warm_compiles"]
+    assert ch["warm"]["kernels"]["sources"] == \
+        {n: "cache" for n in _build.SOURCES}, ch["warm"]["kernels"]
+    assert out["cold_builds"] == 3 and out["warm_builds"] == 0, \
+        (out["cold_builds"], out["warm_builds"])
+    pw = out["prewarm"]
+    assert pw["loaded"] == out["cold_builds"] and pw["failed"] == 0 \
+        and pw["error"] is None, pw
+    assert out["warm_loads"] == out["cold_builds"]
+    for k in RESTART_ROWS:
+        assert out["warm_launches"].get(k, 0) > 0, (k, out["warm_launches"])
+    assert out["repair_compiles"] == 1 and \
+        out["repair_corrupt_evictions"] >= 1, ch["repair"]
+    assert ch["repair"]["kernels"]["sources"]["bottomup"] == "compiled"
+    assert out["same_trees"] and out["repair_same_trees"]
+    check = Graph500Check(g22, dev)
+    for phase, (root, parent, level) in trees.items():
+        check.check(root, parent[0], level[0])
+    del check
+    sess = GraphSession(g22, dev, prewarm=False)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    ref = Engine(sess).bfs([out["root"]], BFSConfig(backend_kernels=False))
+    out["plain_check_s"] = time.perf_counter() - t0
+    assert sum(ops.LAUNCHES.values()) == 0, dict(ops.LAUNCHES)
+    for phase, (root, parent, level) in trees.items():
+        assert root == out["root"], (phase, root)
+        assert np.array_equal(parent, ref.parent), f"{phase} parent vs plain"
+        assert np.array_equal(level, ref.level), f"{phase} level vs plain"
+    sess.close()
+    del sess, ref
+    roots = rng.choice(np.flatnonzero(g16.degrees > 0), 4, replace=False)
+    chaos = bfs_serve.run_cache_chaos(g16, roots, seed=args.seed,
+                                      device="cuda")
+    assert chaos["ok"], chaos
+    out["cache_chaos"] = chaos
+    out["seconds"] = time.perf_counter() - t_phase
+    record["restart"] = out
+    log(f"phase 5r: restart probe on {record['card']}, RMAT scale "
+        f"{args.scale} from phase 5s's file, one root {out['root']}: "
+        f"cold_start_s {out['cold_start_s']:.3f} ({out['cold_compiles']} "
+        f"nvcc in {out['cold_compile_s']:.3f} s, {out['cold_builds']} "
+        f"cohort plans built), warm_start_s {out['warm_start_s']:.3f} "
+        f"({out['warm_compiles']} nvcc, {out['warm_library_loads']} "
+        f"libraries loaded in {out['warm_library_load_s']:.4f} s, "
+        f"{out['warm_builds']} plans built on the query path, pre-warm "
+        f"loaded {pw['loaded']} in {pw['seconds']:.3f} s, hit rate "
+        f"{out['hit_rate']:.3f}); speedup {out['speedup']:.2f}x; "
+        f"graph load {ch['cold']['setup_s']:.1f} / "
+        f"{ch['warm']['setup_s']:.1f} s, process "
+        f"{ch['cold']['process_s']:.1f} / {ch['warm']['process_s']:.1f} s")
+    parts = "; ".join(
+        f"{k[:-2]} " + " / ".join(f"{out[w + '_parts'][k]:.3f}"
+                                  for w in ("cold", "warm"))
+        for k in bfs_serve.RESTART_PARTS)
+    log(f"  session seconds, cold / warm start (the warm start's in its "
+        f"pre-warm): {parts}")
+    log(f"  warm child's launches {out['warm_launches']}; repair child "
+        f"(bottomup's entry garbage): {out['repair_compiles']} nvcc, "
+        f"{out['repair_corrupt_evictions']} corrupt eviction, start "
+        f"{ch['repair']['first_query_s']:.3f} s; 3 trees equal, pass "
+        f"the Graph500 check and equal the gather formulation here "
+        f"({out['plain_check_s']:.2f} s, no kernel launched); cache chaos "
+        f"on scale {PARITY_SCALE}: "
+        f"{chaos['corrupt_evictions']} eviction, {chaos['rebuilds']} "
+        f"rebuild, bitwise {chaos['bitwise']} ({out['seconds']:.1f} s)")
+    for entry in entries:
+        if entry["name"] in RESTART_ROWS:
+            n = out["warm_launches"][entry["name"]]
+            entry.update(launches=entry["launches"] + n, restart_launches=n)
 
 
 def serve_phase(args, dev, record, dec_err):
@@ -2169,14 +2341,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 5s. the partitioned BSP search on gloo ranks sharing the card
-    t0 = time.perf_counter()
-    sharded_phase(args, g16, g22, rng, record, entries)
-    record["sharded_s"] = time.perf_counter() - t0
-    log(f"phase 5s: {record['sharded_s']:.1f} s")
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as gdir:
+        # 5s. the partitioned BSP search on gloo ranks sharing the card
+        path22 = os.path.join(gdir, "full.npz")
+        t0 = time.perf_counter()
+        sharded_phase(args, g16, g22, rng, record, entries, path22)
+        record["sharded_s"] = time.perf_counter() - t0
+        log(f"phase 5s: {record['sharded_s']:.1f} s")
 
-    # 5v. the BFS server on the card
-    server_phase(args, g16, g22, rng, record, dev, entries)
+        # 5v. the BFS server on the card
+        server_phase(args, g16, g22, rng, record, dev, entries)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 5r. the artifact cache and pre-warm across restarts
+        restart_phase(args, g16, g22, rng, record, dev, entries, path22)
     del g16, g22
     gc.collect()
     torch.cuda.empty_cache()

@@ -273,20 +273,20 @@ class Engine:
 
     def _cohort_backend(self, cfg: BFSConfig, bucket: int,
                         use_kernels: bool) -> CohortBatchBackend:
-        """Cohort driver backend for a batch bucket, step functions cached
-        per (config, formulation, bucket, variant); a forced
-        single-direction heuristic has only its one reachable variant."""
+        """Cohort driver backend for a batch bucket. Its plans are the step
+        variants, keyed ("cohort", cfg, use_kernels, bucket, variant) and
+        resolved through `session.executable` (pre-warm pool, registry,
+        build), as the reference's `_cohort_backend` resolves its five
+        executables; a forced single-direction heuristic has only its one
+        reachable variant. The init and the sync payload are plain
+        functions over the session's CSR (`B.init_batch`,
+        `B.batch_scalars`), not plans: there is nothing to build."""
         sess = self.session
+        steps = {}
+        for var in B.reachable_variants(cfg):
+            key = ("cohort", cfg, use_kernels, bucket, var)
+            steps[var] = sess.executable(key, sess.plan_build(key))
         dg = sess.device_graph()
-        ell = None
-        if use_kernels:
-            sess.ensure_kernels()
-            ell = sess.ell_tiles()
-        steps = {
-            var: sess.cached(("cohort", cfg, use_kernels, bucket, var),
-                             lambda v=var: B.make_batch_step(dg, cfg, v, ell))
-            for var in B.reachable_variants(cfg)
-        }
         return CohortBatchBackend(
             lambda roots, active: B.init_batch(dg, cfg, roots, active),
             steps, dg.num_vertices, bucket, sess.device)

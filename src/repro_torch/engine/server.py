@@ -462,10 +462,9 @@ class BFSServer:
                         ServerClosed("server closed before the query ran")):
                     self._caps.release(item.client)
         # Teardown ordering contract: SIGNAL every waiter before JOINING
-        # anything, so no session's background work eats the shared
-        # deadline (the JAX package's sessions run a pre-warm thread; the
-        # port's run none, and `signal_close` returns at once). Queues
-        # were already closed above (their waiters wake immediately).
+        # anything, so no session's background work (its pre-warm thread)
+        # eats the shared deadline. Queues were already closed above
+        # (their waiters wake immediately).
         for eng in engines:
             eng.session.signal_close()
         for t in threads:
@@ -479,8 +478,9 @@ class BFSServer:
             remaining = (None if deadline is None
                          else max(0.0, deadline - time.monotonic()))
             timer.join(remaining)
-        # Close the sessions on the SAME deadline (the port's drop their
-        # device tensors: the workers that used them are joined).
+        # Close the sessions on the SAME deadline: each joins its pre-warm
+        # thread and drops its device tensors and published plans (the
+        # workers that used them are joined).
         for eng in engines:
             remaining = (None if deadline is None
                          else max(0.0, deadline - time.monotonic()))
@@ -907,8 +907,10 @@ class BFSServer:
         queue depth and high-water mark — the depth-bound proof).
 
         Each session also reports its `runtime` block,
-        `GraphSession.runtime_stats()`: builds by kind, warm-ups run and
-        the kernel build's seconds.
+        `GraphSession.runtime_stats()`: builds by kind, warm-ups run, the
+        kernel build's seconds, plan loads and shares, plan sources, the
+        pre-warm's progress and, with a cache dir, the artifact cache's
+        counters.
         """
         with self._state_lock:
             queues = list(self._queues.items())

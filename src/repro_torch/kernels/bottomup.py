@@ -85,7 +85,7 @@ def resident_blocks(device: torch.device, lanes_block: int) -> int:
     n = _resident.get(key)
     if n is None:
         out = ctypes.c_int(0)
-        err = _build.function("bottomup_resident")(
+        err = _build.function("bottomup_resident", device.index)(
             lanes_block, ctypes.addressof(out), device.index)
         if err != 0 or out.value < 1:
             raise RuntimeError(f"repro_bottomup_resident: cudaError_t {err}, "

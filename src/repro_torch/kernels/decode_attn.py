@@ -65,7 +65,7 @@ def resident_blocks(device: torch.device, dtype: torch.dtype, g: int,
     n = _resident.get(key)
     if n is None:
         out = ctypes.c_int(0)
-        err = _build.function("decode_attn_resident")(
+        err = _build.function("decode_attn_resident", device.index)(
             g, h, DTYPE_CODES[dtype], ctypes.addressof(out), device.index)
         if err != 0 or out.value < 1:
             raise RuntimeError(f"repro_decode_attention_resident: cudaError_t "

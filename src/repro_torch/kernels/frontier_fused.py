@@ -65,7 +65,7 @@ def resident_blocks(device: torch.device, lanes_block: int,
     n = _resident.get(key)
     if n is None:
         out = ctypes.c_int(0)
-        err = _build.function("frontier_fused_resident")(
+        err = _build.function("frontier_fused_resident", device.index)(
             lanes_block, int(packed), ctypes.addressof(out), device.index)
         if err != 0 or out.value < 1:
             raise RuntimeError(f"repro_frontier_fused_resident: cudaError_t "

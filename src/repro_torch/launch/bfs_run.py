@@ -14,8 +14,13 @@ Under `torchrun` every rank joins the group from the environment
 (`env://`), runs the same query on `cuda:(LOCAL_RANK % device_count)`
 (or the CPU with `--device cpu`), and only rank 0 prints. `--nparts` > 1
 needs as many ranks. Ranks that share one GPU must use gloo: NCCL refuses
-two ranks on one card. The JAX driver's `--cache-dir` (its persistent
-artifact cache) is not ported.
+two ranks on one card.
+
+`--cache-dir DIR` (or REPRO_CACHE_DIR) enables the persistent artifact
+cache: the first run builds the kernel libraries and its plans and
+records them; a later run of the same graph and config loads the
+libraries and pre-warms the plans (the reported `warm` block shows plan
+builds against loads and the `nvcc` runs of the process).
 """
 from __future__ import annotations
 
@@ -44,13 +49,19 @@ def sample_roots(g, roots: int, seed: int = 0) -> np.ndarray:
 
 def run(scale: int, nparts: int, strategy: str, roots: int = 8,
         heuristic: str = "paper", edgefactor: int = 16, seed: int = 0,
-        validate: bool = True, graph=None, device=None) -> dict:
+        validate: bool = True, graph=None, device=None,
+        cache_dir=None) -> dict:
     """One Graph500-mode run; with `nparts` > 1 on a process group of as
-    many ranks, every rank calling it alike."""
+    many ranks, every rank calling it alike. `cache_dir` configures the
+    process's artifact cache (None: REPRO_CACHE_DIR, if set)."""
     from repro_torch.core import graph as G
     from repro_torch.core.bfs import BFSConfig
     from repro_torch.engine import Engine
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import configure
 
+    if cache_dir is not None:
+        configure(cache_dir=cache_dir)
     g = graph if graph is not None else G.rmat(scale, edgefactor=edgefactor,
                                                seed=seed)
     if roots < 1:
@@ -62,19 +73,21 @@ def run(scale: int, nparts: int, strategy: str, roots: int = 8,
     res = engine.bfs(root_list, BFSConfig(heuristic=heuristic),
                      n_parts=nparts, batched=False, validate=validate)
     teps = res.teps_per_root
+    rt = engine.session.runtime_stats()
     return {"scale": scale, "nparts": nparts, "strategy": strategy,
             "heuristic": heuristic, "backend": res.backend,
             "device": str(engine.device), "teps_hmean": res.teps_hmean,
             "teps_min": float(teps.min()), "teps_max": float(teps.max()),
             "mean_s": float(res.per_root_seconds.mean()),
-            "V": g.num_vertices, "E_undirected": g.num_undirected_edges}
+            "V": g.num_vertices, "E_undirected": g.num_undirected_edges,
+            "warm": {"builds": rt["builds"].get("cohort", 0),
+                     "loads": rt["loads"],
+                     "compiles": _build.STATS["compiles"],
+                     "cache_enabled": rt["cache_enabled"]}}
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(
-        description=__doc__.splitlines()[0],
-        epilog="The JAX driver's --cache-dir (its persistent artifact "
-               "cache) is not ported.")
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=14)
     ap.add_argument("--edgefactor", type=int, default=16)
     ap.add_argument("--nparts", type=int, default=1)
@@ -90,6 +103,10 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU, "
                          "cuda:(LOCAL_RANK %% cards) under torchrun)")
+    ap.add_argument("--cache-dir", default=None,
+                    help="persistent artifact cache directory: kernel "
+                         "libraries and plan records (default: "
+                         "REPRO_CACHE_DIR if set, else disabled)")
     args = ap.parse_args(argv)
 
     import torch
@@ -109,16 +126,21 @@ def main(argv=None):
     try:
         res = run(args.scale, args.nparts, args.strategy, args.roots,
                   args.heuristic, args.edgefactor,
-                  validate=not args.no_validate, device=device)
+                  validate=not args.no_validate, device=device,
+                  cache_dir=args.cache_dir)
     finally:
         if joined:
             dist.destroy_process_group()
     if rank == 0:
+        warm = res["warm"]
+        cache_note = (f" cache[builds={warm['builds']} loads={warm['loads']}"
+                      f" compiles={warm['compiles']}]"
+                      if warm["cache_enabled"] else "")
         print(f"[bfs] scale={res['scale']} V={res['V']} "
               f"E={res['E_undirected']} P={res['nparts']} "
               f"{res['strategy']}/{res['heuristic']}: "
               f"{res['teps_hmean'] / 1e6:.2f} MTEPS (hmean over "
-              f"{args.roots} roots)", flush=True)
+              f"{args.roots} roots){cache_note}", flush=True)
     return res
 
 

@@ -10,9 +10,14 @@ admission-control counters. `run_load` is the reusable load generator.
       --clients 8 --queries 6 --batch 4                  # on the GPU
   python -m repro_torch.launch.bfs_serve --graphs 1 --scale 10 \
       --clients 4 --queries 3 --stream-every 2 --cancel-probe --device cpu
+  python -m repro_torch.launch.bfs_serve --graphs 1 --scale 9 \
+      --clients 2 --queries 2 --cache-dir /tmp/c --restart-probe --device cpu
 
-The JAX driver's `--cache-dir` and `--restart-probe` (its persistent
-artifact cache) are not ported (ROADMAP.md queue 1 item 9).
+`--cache-dir DIR` (or REPRO_CACHE_DIR) enables the persistent artifact
+cache (kernel libraries and plan records); `--restart-probe` then measures
+a cold and a warm restart in two child processes over it
+(`run_restart_probe`), and the chaos probe's fourth phase corrupts a plan
+record (`run_cache_chaos`).
 """
 from __future__ import annotations
 
@@ -343,8 +348,9 @@ def run_chaos_probe(*, scale: int = 9, edgefactor: int = 8,
        window the half-open probe query must succeed and re-close the
        breaker.
 
-    The JAX probe's fourth phase (artifact-cache corruption) waits for the
-    cache (ROADMAP.md queue 1 item 9).
+    4. cache — `run_cache_chaos`: a plan record whose load fails (an
+       injected `cache_load` fault) is evicted and counted, its plan is
+       built again on the query path, and the levels stay bitwise equal.
     """
     from repro_torch.core import graph as G
     from repro_torch.core.bfs import BFSConfig
@@ -479,6 +485,9 @@ def run_chaos_probe(*, scale: int = 9, edgefactor: int = 8,
     finally:
         srv.close()
 
+    # ------------------------------------------------------------ 4. cache
+    out["cache"] = run_cache_chaos(g, roots, seed=seed, device=device)
+
     out["ok"] = bool(
         out["load"]["zero_lost"]
         and out["load"]["availability"] >= 0.9
@@ -491,7 +500,49 @@ def run_chaos_probe(*, scale: int = 9, edgefactor: int = 8,
              and out["degrade"]["tiles_error"] == "FaultInjected")
         and out["degrade"]["degraded_scalar"] >= 1
         and out["degrade"]["scalar_bitwise"]
-        and out["breaker"]["recovered"])
+        and out["breaker"]["recovered"]
+        and out["cache"]["ok"])
+    return out
+
+
+def run_cache_chaos(g, roots, *, seed: int = 0, device=None) -> dict:
+    """The chaos probe's cache phase: persistence never breaks a query.
+
+    In a fresh cache dir (plan sharing off, so the second session cannot
+    take the first's plans), one session runs the fused query and records
+    its plans; a second session's pre-warm then loads the records under
+    `cache_load@0`: the first load fails, the record is evicted and
+    counted (`corrupt_evictions`), the others pre-warm, and the query
+    builds that plan again on its own path. Gate: an eviction, a rebuild,
+    levels and parents bitwise equal to the first session's.
+    """
+    import tempfile
+    from repro_torch.engine import Engine, GraphSession
+    from repro_torch.runtime import RuntimeConfig, artifact_cache_for
+    from repro_torch.runtime.faults import fault_scope
+    with tempfile.TemporaryDirectory(prefix="repro-chaos-") as tmp:
+        rt = RuntimeConfig(cache_dir=tmp, share_plans=False)
+        s1 = GraphSession(g, device, runtime=rt, prewarm=False)
+        base = Engine(s1).bfs(roots, backend="fused")
+        s1.close()
+        cache = artifact_cache_for(rt)
+        before = cache.stats()["corrupt_evictions"]
+        with fault_scope("cache_load@0", seed=seed):
+            s2 = GraphSession(g, device, runtime=rt, prewarm=True)
+            s2.prewarm_wait()
+            again = Engine(s2).bfs(roots, backend="fused")
+            rt_stats = s2.runtime_stats()
+            s2.close()
+        corrupt = cache.stats()["corrupt_evictions"] - before
+    out = dict(
+        corrupt_evictions=corrupt,
+        rebuilds=rt_stats["builds"].get("cohort", 0),
+        prewarm=rt_stats["prewarm"],
+        bitwise=bool((again.level == base.level).all()
+                     and (again.parent == base.parent).all()
+                     and (again.num_levels == base.num_levels).all()))
+    out["ok"] = bool(out["corrupt_evictions"] >= 1 and out["rebuilds"] >= 1
+                     and out["bitwise"])
     return out
 
 
@@ -504,6 +555,161 @@ def build_server(n_graphs: int, scale: int, *, edgefactor: int = 16,
                                          seed=seed + i)
               for i in range(n_graphs)}
     return BFSServer(graphs, **server_kw), graphs
+
+
+# The session's seconds a restart child reports (`runtime_stats()`): the
+# kernel libraries made ready, the graph hashed, the CSR uploaded, the
+# tiles built; on a warm start the pre-warm thread spends them.
+RESTART_PARTS = ("kernel_build_s", "fingerprint_s", "csr_s", "tiles_s")
+
+_RESTART_CHILD = """
+import hashlib, json, os, sys, time
+import numpy as np
+spec, cache_dir, device, out_dir, phase, PARTS = json.loads(sys.argv[1])
+t0 = time.perf_counter()
+from repro_torch.engine import Engine, GraphSession
+from repro_torch.kernels import _build, ops
+from repro_torch.runtime import configure
+if spec.get("path"):
+    from repro_torch.interop import graph_from_arrays
+    with np.load(spec["path"]) as z:
+        g = graph_from_arrays(int(z["v"]), z["indptr"], z["indices"],
+                              z["degrees"])
+else:
+    from repro_torch.core import graph as G
+    g = G.rmat(spec["scale"], edgefactor=spec["edgefactor"],
+               seed=spec["seed"])
+configure(cache_dir=cache_dir)
+setup_s = time.perf_counter() - t0
+ops.reset_launches()
+t0 = time.perf_counter()
+s = GraphSession(g, device)
+e = Engine(s)
+root = int(g.degrees.argmax())
+res = e.bfs([root], backend="fused")
+first_query_s = time.perf_counter() - t0
+launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+s.prewarm_wait(600)
+rt = s.runtime_stats()
+s.close()
+np.savez(os.path.join(out_dir, phase + ".npz"), root=root,
+         parent=res.parent, level=res.level)
+digest = hashlib.sha256(np.ascontiguousarray(res.parent).tobytes()
+                        + np.ascontiguousarray(res.level).tobytes())
+print(json.dumps(dict(
+    setup_s=setup_s, first_query_s=first_query_s, root=root,
+    builds=rt["builds"].get("cohort", 0), loads=rt["loads"],
+    parts={k: rt[k] for k in PARTS},
+    prewarm=rt["prewarm"], cache=rt.get("artifact_cache"),
+    kernels=_build.STATS, launches=launches,
+    trees_sha256=digest.hexdigest())))
+"""
+
+
+def run_restart_probe(cache_dir: str, *, scale: int = 10,
+                      edgefactor: int = 16, seed: int = 0,
+                      graph_path: Optional[str] = None, device=None,
+                      corrupt_library: bool = False,
+                      timeout: float = 900.0) -> dict:
+    """Cold-against-warm restart accounting across real process boundaries.
+
+    Runs child processes in turn, each attaching a session over the same
+    graph (`graph_path`, an .npz of its CSR: `v`, `indptr`, `indices`,
+    `degrees`; else RMAT `scale`, `edgefactor`, `seed`) on `device`
+    (None: the GPU) with the artifact cache at `cache_dir`, and timing
+    attach plus its first fused query (one root, the highest-degree
+    vertex). The first (cold, on a fresh
+    directory) compiles the kernel libraries (on a GPU) and builds and
+    records its plans; the second (warm) loads the libraries and
+    pre-warms every plan: `warm_compiles == 0` and `warm_builds == 0`
+    prove it, with its trees equal to the cold child's. `cold_parts` and
+    `warm_parts` split each start's session seconds (`RESTART_PARTS`).
+
+    `corrupt_library` (a GPU) then replaces the bottom-up library's entry
+    with garbage and runs a third child (repair): the load fails, the
+    entry is evicted and counted, `nvcc` builds that one source again
+    (`repair_compiles == 1`), and the trees stay equal. Each child's trees
+    are returned under `trees` (phase -> (root, parent, level)).
+    """
+    import json
+    import os
+    import subprocess
+    import sys
+    import tempfile
+    src_dir = os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["REPRO_CACHE_DIR"] = cache_dir
+    env["PYTHONPATH"] = src_dir + os.pathsep + env.get("PYTHONPATH", "")
+    spec = dict(path=graph_path, scale=scale, edgefactor=edgefactor,
+                seed=seed)
+    dev = None if device is None else str(device)
+    phases, trees = {}, {}
+
+    def child(phase, out_dir):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _RESTART_CHILD,
+             json.dumps([spec, cache_dir, dev, out_dir, phase,
+                         RESTART_PARTS])],
+            capture_output=True, text=True, env=env, timeout=timeout)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"restart probe {phase} child failed "
+                f"(rc={proc.returncode}):\n{proc.stderr[-4000:]}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        out["process_s"] = time.perf_counter() - t0
+        phases[phase] = out
+        with np.load(os.path.join(out_dir, phase + ".npz")) as z:
+            trees[phase] = (int(z["root"]), z["parent"], z["level"])
+
+    with tempfile.TemporaryDirectory(prefix="repro-restart-") as out_dir:
+        child("cold", out_dir)
+        child("warm", out_dir)
+        kernels_dir = os.path.join(cache_dir, "kernels")
+        bottomup = sorted(n for n in os.listdir(kernels_dir)
+                          if n.startswith("bottomup-")) \
+            if os.path.isdir(kernels_dir) else []
+        if corrupt_library:
+            if not bottomup:
+                raise RuntimeError("corrupt_library: the cold child cached "
+                                   "no bottom-up library (a GPU run only)")
+            # a new file replaces the entry (a loaded file is never
+            # written in place)
+            path = os.path.join(kernels_dir, bottomup[0])
+            with open(path + ".garbage", "wb") as f:
+                f.write(b"\x7fELF not a library")
+            os.replace(path + ".garbage", path)
+            child("repair", out_dir)
+    cold, warm = phases["cold"], phases["warm"]
+    cache = warm.get("cache") or {}
+    prewarm = warm.get("prewarm") or {}
+    out = dict(
+        scale=scale, graph_path=graph_path, cache_dir=cache_dir,
+        device=dev, root=cold["root"],
+        cold_start_s=cold["first_query_s"],
+        warm_start_s=warm["first_query_s"],
+        speedup=cold["first_query_s"] / max(warm["first_query_s"], 1e-9),
+        cold_parts=cold["parts"], warm_parts=warm["parts"],
+        cold_builds=cold["builds"], warm_builds=warm["builds"],
+        warm_loads=warm["loads"],
+        cold_compiles=cold["kernels"]["compiles"],
+        cold_compile_s=cold["kernels"]["compile_s"],
+        warm_compiles=warm["kernels"]["compiles"],
+        warm_library_loads=warm["kernels"]["cache_loads"],
+        warm_library_load_s=warm["kernels"]["cache_load_s"],
+        hit_rate=cache.get("hit_rate", 0.0),
+        prewarm=prewarm, prewarm_loaded=prewarm.get("loaded", 0),
+        warm_launches=warm["launches"],
+        same_trees=cold["trees_sha256"] == warm["trees_sha256"],
+        children=phases, trees=trees)
+    if "repair" in phases:
+        rep = phases["repair"]
+        out.update(
+            repair_compiles=rep["kernels"]["compiles"],
+            repair_corrupt_evictions=rep["cache"]["corrupt_evictions"],
+            repair_same_trees=rep["trees_sha256"] == cold["trees_sha256"])
+    return out
 
 
 def main(argv=None):
@@ -537,8 +743,21 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device of the sessions (default: the GPU; "
                          "'cpu' runs the kernels' plain versions)")
+    ap.add_argument("--cache-dir", default=None,
+                    help="persistent artifact cache directory: kernel "
+                         "libraries and plan records (default: "
+                         "REPRO_CACHE_DIR if set, else disabled)")
+    ap.add_argument("--restart-probe", action="store_true",
+                    help="after the load, measure a cold and a warm "
+                         "restart in two child processes sharing the cache "
+                         "dir (needs --cache-dir or REPRO_CACHE_DIR)")
     args = ap.parse_args(argv)
 
+    from repro_torch.runtime import configure, get_runtime_config
+    if args.cache_dir is not None:
+        configure(cache_dir=args.cache_dir)
+    if args.restart_probe and get_runtime_config().cache_dir is None:
+        ap.error("--restart-probe needs --cache-dir (or REPRO_CACHE_DIR)")
     server, graphs = build_server(
         args.graphs, args.scale, edgefactor=args.edgefactor, seed=args.seed,
         max_queue_depth=args.queue_depth,
@@ -561,6 +780,13 @@ def main(argv=None):
                                 edgefactor=min(args.edgefactor, 8),
                                 seed=args.seed, device=args.device)
         stats["chaos_probe"] = chaos
+    restart = None
+    if args.restart_probe:
+        restart = run_restart_probe(get_runtime_config().cache_dir,
+                                    scale=min(args.scale, 10),
+                                    edgefactor=args.edgefactor,
+                                    seed=args.seed, device=args.device)
+        stats["restart_probe"] = restart
     print(f"[serve] {args.graphs} session(s) scale={args.scale} | "
           f"{m['clients']} clients x {args.queries} queries "
           f"(batch {args.batch}): {m['qps']:.1f} QPS, "
@@ -589,7 +815,19 @@ def main(argv=None):
               f"degrade backend={chaos['degrade']['degraded_backend']} "
               f"scalar={chaos['degrade']['degraded_scalar']} | "
               f"breaker trips={chaos['breaker']['trips']} "
-              f"recovered={chaos['breaker']['recovered']}")
+              f"recovered={chaos['breaker']['recovered']} | "
+              f"cache corrupt_evictions="
+              f"{chaos['cache']['corrupt_evictions']} rebuilds="
+              f"{chaos['cache']['rebuilds']}")
+    if restart is not None:
+        print(f"[serve] restart probe: cold {restart['cold_start_s']:.2f}s "
+              f"({restart['cold_builds']} plan builds, "
+              f"{restart['cold_compiles']} nvcc) -> warm "
+              f"{restart['warm_start_s']:.2f}s ({restart['warm_builds']} "
+              f"plan builds, {restart['warm_loads']} pre-warmed, "
+              f"{restart['warm_compiles']} nvcc, hit rate "
+              f"{restart['hit_rate']:.2f}) = {restart['speedup']:.1f}x, "
+              f"same trees {restart['same_trees']}")
     return m, stats
 
 

@@ -8,6 +8,14 @@ fields this package reads, under the same strict precedence:
 Environment variables (all optional):
 
 =====================  =====================================================
+REPRO_CACHE_DIR        persistent artifact-cache directory ('' = disabled):
+                       built kernel libraries and plan records
+                       (`repro_torch.runtime.artifact_cache`)
+REPRO_CACHE_MAX_BYTES  cache eviction cap; int bytes or '512MB'/'2GB'
+                       (default 1 GiB)
+REPRO_PREWARM          '1'/'0': background pre-warm on `GraphSession` attach
+REPRO_PREWARM_LIMIT    max plan records one pre-warm pass rebuilds (64)
+REPRO_SHARE_PLANS      '1'/'0': in-process cross-session plan sharing (on)
 REPRO_KERNELS          'auto' | 'off': the BFS formulation when
                        `BFSConfig.backend_kernels` is None. 'auto' runs the
                        ELL-tile kernels ("tiles") on every device, 'off'
@@ -24,10 +32,10 @@ REPRO_SANITIZE         '1'/'0': concurrency sanitizer (instrumented lock and
                        Testing only
 =====================  =====================================================
 
-The JAX package's other fields (the artifact cache, pre-warm, plan sharing,
-Pallas interpret mode, fake device count, tcmalloc, the VMEM budget and
-strict contracts) have nothing to configure here yet (ROADMAP.md queue 1
-items 9-10).
+The JAX package's other fields (Pallas interpret mode, the fake host
+device count, tcmalloc and its launch environment, the VMEM budget and
+strict contracts) configure nothing here (ROADMAP.md queue 1 items 9-10).
+Parsing reads no device: resolving a config never initializes CUDA.
 
 The module keeps one process-wide singleton (`get_runtime_config`), replaced
 by `configure(...)` and scoped by the `runtime_scope(...)` context manager
@@ -42,6 +50,29 @@ import threading
 from typing import Optional
 
 _KERNELS = ("auto", "off")
+DEFAULT_CACHE_MAX_BYTES = 1 << 30            # 1 GiB
+DEFAULT_PREWARM_LIMIT = 64
+
+_SIZE_SUFFIXES = {"KB": 1 << 10, "MB": 1 << 20, "GB": 1 << 30,
+                  "K": 1 << 10, "M": 1 << 20, "G": 1 << 30, "B": 1}
+
+
+def _parse_size(text: str, *, name: str) -> int:
+    """'1048576' | '512MB' | '2gb' -> bytes (int)."""
+    s = str(text).strip().upper().replace(" ", "")
+    for suffix in sorted(_SIZE_SUFFIXES, key=len, reverse=True):
+        if s.endswith(suffix):
+            body = s[:-len(suffix)]
+            try:
+                return int(float(body) * _SIZE_SUFFIXES[suffix])
+            except ValueError:
+                break
+    try:
+        return int(s)
+    except ValueError:
+        raise ValueError(
+            f"{name}: cannot parse size {text!r}; want an integer byte "
+            f"count or a number with a KB/MB/GB suffix") from None
 
 
 def _parse_bool(text: str, *, name: str) -> bool:
@@ -71,6 +102,14 @@ class RuntimeConfig:
     constructor takes the values as final (the "explicit argument" tier).
     """
 
+    # -- persistent artifact cache -------------------------------------------
+    cache_dir: Optional[str] = None          # None = persistence disabled
+    cache_max_bytes: int = DEFAULT_CACHE_MAX_BYTES
+    prewarm: bool = True                     # background pre-warm on attach
+    prewarm_limit: int = DEFAULT_PREWARM_LIMIT
+    # -- in-process plan sharing ---------------------------------------------
+    share_plans: bool = True                 # content-hash cross-session cache
+    # -- formulation, chaos testing, sanitizer -------------------------------
     kernel_backend: str = "auto"             # BFSConfig.backend_kernels=None
     faults: Optional[str] = None             # fault schedule ('' / None = off)
     faults_seed: int = 0
@@ -81,6 +120,14 @@ class RuntimeConfig:
             raise ValueError(f"kernel_backend: want one of {_KERNELS} "
                              f"('auto' already runs the kernels on every "
                              f"device), got {self.kernel_backend!r}")
+        if self.cache_max_bytes <= 0:
+            raise ValueError(
+                f"cache_max_bytes must be > 0, got {self.cache_max_bytes}")
+        if self.prewarm_limit < 0:
+            raise ValueError(
+                f"prewarm_limit must be >= 0, got {self.prewarm_limit}")
+        if self.cache_dir is not None and not str(self.cache_dir):
+            object.__setattr__(self, "cache_dir", None)
         if self.faults is not None and not str(self.faults).strip():
             object.__setattr__(self, "faults", None)
         if self.faults is not None:
@@ -94,10 +141,24 @@ class RuntimeConfig:
         """Defaults <- env <- explicit kwargs (later tiers win).
 
         Explicit kwargs set to None mean "not given" and fall through to
-        the env/default tiers.
+        the env/default tiers; pass `cache_dir=""` to explicitly disable a
+        cache the env enables (it normalizes to a disabled cache).
         """
         env = os.environ if env is None else env
         values: dict = {}
+        if "REPRO_CACHE_DIR" in env:
+            values["cache_dir"] = env["REPRO_CACHE_DIR"] or None
+        if "REPRO_CACHE_MAX_BYTES" in env:
+            values["cache_max_bytes"] = _parse_size(
+                env["REPRO_CACHE_MAX_BYTES"], name="REPRO_CACHE_MAX_BYTES")
+        if "REPRO_PREWARM" in env:
+            values["prewarm"] = _parse_bool(env["REPRO_PREWARM"],
+                                            name="REPRO_PREWARM")
+        if "REPRO_PREWARM_LIMIT" in env:
+            values["prewarm_limit"] = int(env["REPRO_PREWARM_LIMIT"])
+        if "REPRO_SHARE_PLANS" in env:
+            values["share_plans"] = _parse_bool(env["REPRO_SHARE_PLANS"],
+                                                name="REPRO_SHARE_PLANS")
         if "REPRO_KERNELS" in env:
             values["kernel_backend"] = _parse_kernels(env["REPRO_KERNELS"],
                                                       name="REPRO_KERNELS")
@@ -113,6 +174,10 @@ class RuntimeConfig:
                 continue
             values[key] = val
         return cls(**values)
+
+    @property
+    def cache_enabled(self) -> bool:
+        return self.cache_dir is not None
 
 
 # ------------------------------------------------------- process singleton --

@@ -23,8 +23,11 @@ Injection sites (`SITES`) and where they are threaded:
 compile        `engine.session.GraphSession.cached` — building a cached
                step function, tile set or backend fails; the failed build
                is not cached (ctx: ``key``)
-cache_load     no site in the port yet: the artifact cache is not ported
-               (ROADMAP.md queue 1 item 9); kept so schedules parse alike
+cache_load     `runtime.artifact_cache.ArtifactCache.load` (a plan record)
+               and `load_library` (a built kernel library), inside the
+               load's try: a fired fault takes the corrupt-entry path
+               (evict, count, miss; the caller builds again) (ctx:
+               ``fingerprint``)
 dispatch       per-level kernel dispatch in `engine.level_loop.LevelDriver`
                and the per-root dispatch loops in `engine.engine` (ctx:
                ``mode`` in batch|scalar|stepper|sharded, ``kernels`` in

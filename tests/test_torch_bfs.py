@@ -24,6 +24,7 @@ from repro_torch.core import bfs as TB
 from repro_torch.core import graph as TG
 from repro_torch.engine import (CohortBatchBackend, Engine, QueryCancelled,
                                 QueryControl)
+from repro_torch.runtime import reset_process_caches
 
 CPU = torch.device("cpu")
 ROW_KEYS = ("level", "direction", "td_lanes", "bu_lanes", "frontier_size",
@@ -62,6 +63,17 @@ GRAPHS = {
 }
 MIXED_BATCH = _composite(TG)[1]
 HEURISTICS = ["paper", "beamer", "topdown", "bottomup"]
+
+
+@pytest.fixture(autouse=True)
+def _reset_port_runtime():
+    """Plans are shared across sessions by graph content, and this file's
+    tests reuse graphs (one patches the step the plans close over): reset
+    the port's registry (and its fingerprint and cache memos) around each
+    test, so no test runs a plan an earlier one built."""
+    reset_process_caches()
+    yield
+    reset_process_caches()
 
 
 def _rows(res):

@@ -6,7 +6,8 @@ against the JAX package's, on the CPU.
 * The same schedule and seed fire the same occurrences with the same
   actions, whatever the sites and contexts (`@p=` draws included).
 * `RuntimeConfig.resolve` gives the same precedence (explicit > env >
-  default) for the four fields the port has, and validates alike.
+  default) for the formulation, fault and sanitizer fields, and
+  validates alike (the cache fields: `tests/test_torch_runtime.py`).
 * The sanitizer records the same lock-order edges and cycles.
 * The port's fault sites: `device` at query entry, `dispatch` per level
   with the formulation in its context, per root in Graph500 mode, and
@@ -27,6 +28,7 @@ from repro_torch.core import graph as TG
 from repro_torch.engine import Engine
 from repro_torch.runtime import config as TCFG
 from repro_torch.runtime import faults as TF
+from repro_torch.runtime import reset_process_caches
 
 SCHEDULES = [
     "dispatch",
@@ -55,6 +57,17 @@ def _no_leaked_injector():
     yield
     TF.uninstall()
     JF.uninstall()
+
+
+@pytest.fixture(autouse=True)
+def _reset_port_runtime():
+    """Plans are shared across sessions by graph content, and this file's
+    tests reuse graphs: reset the port's registry (and its fingerprint and
+    cache memos) around each test, so build counts do not depend on which
+    tests ran before."""
+    reset_process_caches()
+    yield
+    reset_process_caches()
 
 
 @pytest.mark.parametrize("text", SCHEDULES)

@@ -38,6 +38,7 @@ from repro_torch.core import partition as TP
 from repro_torch.engine import Engine
 from repro_torch.kernels import ops
 from repro_torch.parallel import ranks
+from repro_torch.runtime import reset_process_caches
 
 CPU = torch.device("cpu")
 INT_MAX = TB.INT_MAX
@@ -46,6 +47,17 @@ B = 6
 DENSITY = (0.0, 0.004, 0.03, 0.2, 0.6, 0.95)   # per lane: ragged frontiers
 MASK = np.array([True, True, False, True, True, True])
 ROOTS = [0, 7, 123, 300]
+
+
+@pytest.fixture(autouse=True)
+def _reset_port_runtime():
+    """Plans are shared across sessions by graph content, and this file's
+    tests reuse graphs: reset the port's registry (and its fingerprint and
+    cache memos) around each test, so build counts do not depend on which
+    tests ran before."""
+    reset_process_caches()
+    yield
+    reset_process_caches()
 
 
 def _ref(mod, words: str):

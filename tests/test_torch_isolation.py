@@ -4,8 +4,9 @@
   `jax` or `repro`;
 * a subprocess that blocks both on `sys.meta_path`, imports the port and
   runs CPU searches on every path (unsplit, hub split, stepper, `bfs()`,
-  the gather formulation), `BFSServer` queries (batched and streamed) and
-  the LLM serving entry point at smoke size;
+  the gather formulation), `BFSServer` queries (batched and streamed), a
+  session that records its plans in an artifact cache and one that
+  pre-warms them, and the LLM serving entry point at smoke size;
 * `Engine(g)`, `BFSServer` and the serving entry point with no device ask
   for CUDA and raise without it, a partitioned query and `parallel.ranks`
   too (a rank's device is never a quiet CPU);
@@ -81,6 +82,18 @@ with BFSServer({"g": g}, device="cpu") as server:
     assert len(list(h.stream(60))) == int(h.result(60).num_levels[0]) + 1
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
                for m in sys.modules)
+import tempfile
+from repro_torch.engine import GraphSession
+from repro_torch.runtime import reset_process_caches, runtime_scope
+with tempfile.TemporaryDirectory() as d, runtime_scope(cache_dir=d):
+    s = GraphSession(G.rmat(8, seed=2), device="cpu")
+    Engine(s).bfs([0, 5, 9])
+    s.close()
+    reset_process_caches()
+    s = GraphSession(G.rmat(8, seed=2), device="cpu")
+    Engine(s).bfs([0, 5, 9], validate=True)
+    assert s.runtime_stats()["loads"] == 3, s.runtime_stats()
+    s.close()
 print("levels", int(res.num_levels.max()))
 from repro_torch.launch import serve
 toks = serve.main(["--arch", "gemma2-9b", "--smoke", "--device", "cpu",

@@ -33,6 +33,7 @@ from repro_torch.engine.level_loop import (QueryCancelled as TCancelled,
 from repro.engine.level_loop import (QueryCancelled as JCancelled,
                                      QueryDeadlineExceeded as JExpired)
 from repro_torch.runtime import faults as TF
+from repro_torch.runtime import reset_process_caches
 
 PORT = SimpleNamespace(
     name="port", G=TG, Config=TB.BFSConfig, Q=TQ, F=TF,
@@ -43,6 +44,17 @@ REF = SimpleNamespace(
     Cancelled=JCancelled, Expired=JExpired, tiles="pallas")
 TIMEOUT = 300
 VOLATILE = ("seconds", "compute_s", "exchange_s")
+
+
+@pytest.fixture(autouse=True)
+def _reset_port_runtime():
+    """Plans are shared across sessions by graph content, and this file's
+    tests reuse graphs: reset the port's registry (and its fingerprint and
+    cache memos) around each test, so build counts do not depend on which
+    tests ran before."""
+    reset_process_caches()
+    yield
+    reset_process_caches()
 
 
 def _graphs(pkg):
@@ -514,3 +526,6 @@ def test_bfs_serve_driver_and_chaos_probe_on_the_cpu():
                                     queries_per_client=3, device="cpu")
     assert out["ok"], out
     assert out["load"]["lost"] == 0
+    # the cache phase: a failed record load is evicted, built again, equal
+    assert out["cache"]["corrupt_evictions"] >= 1
+    assert out["cache"]["rebuilds"] >= 1 and out["cache"]["bitwise"]
