@@ -77,8 +77,24 @@ a nonzero exit; nothing is caught):
    the three kernels against their plain versions bitwise, and times them
    at their largest call. Printed: per-root seconds and TEPS, per-level
    compute_s / exchange_s for psum and bitmap, agg_s, the bytes a level on
-   the wire, the group's backend. The times are of P ranks sharing one
-   card over gloo, not of a multi-GPU run.
+   the wire, the group's backend. Then, on the same ranks, sharded
+   serving: rank 0 serves through `BFSServer(front=PartitionFront(group))`
+   and ranks 1-3 run `partition_front.follow`; 4 clients x 3 queries x 2
+   roots, every 3rd query streamed on the partitioned stepper, alternating
+   between the psum and the bitmap exchange. Each rank's launch counts are
+   zeroed just before the load and read just after: rows 5-7 must launch
+   on every rank. Every served tree passes the Graph500 check and equals
+   the same root through `Engine.bfs` (sharded) on the same ranks, run
+   just before. Then the probes on the phase-3 graph:
+   `dispatch[mode=sharded]@0` (a retry, served), `dispatch[mode=stepper,
+   level=2]@*` on a streamed query (`FaultInjected`: the card's chain has
+   no gather stage) and a cancel at a level boundary (`QueryCancelled`),
+   each followed by a served query on the same group; every follower ran
+   as many dispatches, and aborted as many, as the front counted.
+   Printed: QPS, p50/p99 latency, roots a dispatch, the front's
+   agreements and their seconds against a streamed level's exchange_s,
+   the served/failed/retried/aborted counters. The times are of P ranks
+   sharing one card over gloo, not of a multi-GPU run.
 5v. The BFS server (`repro_torch.engine.BFSServer`, `launch.bfs_serve`)
    on the card. Load: two sessions of the --scale graph (plan sharing
    on, the default, so one CSR, one tile set and one cohort plan set
@@ -1471,6 +1487,20 @@ SHARDED_KERNELS = ("bottomup", "topdown_push", "frontier_fused")
 SHARDED_NOTE = ("P ranks time-share one H100 and exchange through gloo "
                 "(host memory); not a multi-GPU figure")
 RANK_TIMEOUT = 900                # seconds a spawn of ranks may take
+# Phase 5s's served load on the full-size ranks: rank 0 is the front
+# (`BFSServer(front=PartitionFront(group))`), ranks 1-3 `follow`; 4 clients
+# x 3 queries x 2 roots, every 3rd query streamed on the partitioned
+# stepper, the queries alternating between the psum and the bitmap
+# exchange (two plans, so coalescing is keyed by plan).
+SHARDED_LOAD = dict(clients=4, queries_per_client=3, batch=2, stream_every=3)
+# The probes on the phase-3 graph, each followed by a served query:
+# (name, fault schedule, the query is streamed, the front's outcome).
+SHARDED_PROBES = (
+    ("retry", "dispatch[mode=sharded]@0", False, "served"),
+    ("stepper fault", "dispatch[mode=stepper,level=2]@*", True,
+     "FaultInjected"),
+    ("cancel", "straggler@*:delay=50ms", True, "QueryCancelled"),
+)
 
 
 def save_graph(g, path):
@@ -1531,13 +1561,16 @@ def sharded_parity_rank(rank, group, device, graph_path, roots):
     return out
 
 
-def sharded_full_rank(rank, group, device, graph_path, roots):
+def sharded_full_rank(rank, group, device, graph_path, roots, path16,
+                      serve_roots):
     """Phase 5s at full size on one rank: `Engine.bfs` over the partitioned
     graph (4 roots `sharded` in Graph500 mode, 2 `stepper` with the psum
     exchange, 1 with the bitmap), launch counts zeroed just before and read
     just after. Rank 0 also holds the trees against the Graph500 check,
     every sharded kernel's captured calls (the level with the most live
-    rows) against their plain versions, and times them."""
+    rows) against their plain versions, and times them. Then the served
+    load on the same ranks (`sharded_served`) and the probes on the
+    phase-3 graph (`sharded_probes`)."""
     import torch
     import torch.distributed as dist
     from repro_torch.core.hybrid_bfs import HybridConfig
@@ -1597,8 +1630,162 @@ def sharded_full_rank(rank, group, device, graph_path, roots):
         del check
         out.update(sharded_kernel_checks(calls, device))
         del calls
+    t1 = time.perf_counter()
+    out["served"] = sharded_served(rank, group, device, eng, g, serve_roots)
+    t2 = time.perf_counter()
+    out["probes"] = sharded_probes(rank, group, device, path16)
+    out.update(served_s=t2 - t1, probes_s=time.perf_counter() - t2)
     dist.barrier(group)
     return out
+
+
+def served_queries(roots):
+    """The served load's queries, (client, index, exchange, roots,
+    streamed), from `SHARDED_LOAD`; every rank derives the same list."""
+    L = SHARDED_LOAD
+    out = []
+    for c in range(L["clients"]):
+        for q in range(L["queries_per_client"]):
+            k = c * L["queries_per_client"] + q
+            out.append((c, k, ("psum", "bitmap")[k % 2],
+                        roots[k * L["batch"]:(k + 1) * L["batch"]],
+                        (k + 1) % L["stream_every"] == 0))
+    return out
+
+
+def sharded_served(rank, group, device, eng, g, roots):
+    """The served load on the full-size ranks. Every rank first runs the
+    load's roots through `Engine.bfs` (sharded, batched, one call an
+    exchange), then serves: rank 0 through `BFSServer(front=...)` with 4
+    client threads, the others in `follow`. Each rank's launch counts are
+    zeroed just before the load and read just after; rank 0 holds every
+    served tree against the Graph500 check and against the same root's
+    `Engine.bfs` tree."""
+    import threading
+    import torch.distributed as dist
+    from repro_torch.core.hybrid_bfs import HybridConfig
+    from repro_torch.engine import BFSServer, PartitionFront, follow
+    from repro_torch.kernels import ops
+    n = dist.get_world_size(group)
+    plans = {"psum": HybridConfig(), "bitmap": HybridConfig(exchange="bitmap")}
+    queries = served_queries(roots)
+    direct = {}
+    t0 = time.perf_counter()
+    for label, hcfg in plans.items():
+        rs = np.concatenate([q[3] for q in queries if q[2] == label])
+        direct[label] = eng.bfs(rs, hcfg, backend="sharded", n_parts=n)
+    direct_s = time.perf_counter() - t0
+    sessions = {"g22": eng.session}
+    dist.barrier(group)
+    ops.reset_launches()
+    if rank != 0:
+        counts = follow(sessions, group)
+        return dict(follow=counts, launches={
+            k: c for k, c in ops.LAUNCHES.items() if c})
+    server = BFSServer(sessions, front=PartitionFront(group))
+    results, errors = {}, []
+
+    def client(c):
+        try:
+            for cc, k, label, rs, stream in queries:
+                if cc != c:
+                    continue
+                h = server.submit(
+                    "g22", rs, plans[label],
+                    backend="stepper" if stream else "sharded", n_parts=n,
+                    stream=stream, client=f"client{c}")
+                rows = list(h.stream(RANK_TIMEOUT)) if stream else []
+                results[k] = (h.result(RANK_TIMEOUT), rows, h.latency_s)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SHARDED_LOAD["clients"])]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(RANK_TIMEOUT)
+    wall = time.perf_counter() - t0
+    server.close()
+    launches = {k: c for k, c in ops.LAUNCHES.items() if c}
+    assert not errors, errors
+    assert len(results) == len(queries)
+    st = server.stats()
+    totals, front = st["totals"], st["front"]
+    check = Graph500Check(g, device)
+    offsets = {label: 0 for label in plans}
+    for _c, k, label, rs, _stream in queries:
+        res = results[k][0]
+        want = direct[label]
+        i = offsets[label]
+        offsets[label] += len(rs)
+        assert np.array_equal(res.parent, want.parent[i:i + len(rs)]), k
+        assert np.array_equal(res.level, want.level[i:i + len(rs)]), k
+    trees = trees_ok(check, *[r[0] for r in results.values()])
+    del check
+    lat = np.array([r[2] for r in results.values()])
+    rows = [row for r in results.values() for row in r[1]]
+    exchange_s = [row["exchange_s"] for row in rows]
+    levels = sum(len(r[1]) for r in results.values())
+    return dict(
+        queries=len(queries), roots=int(totals["roots"]), trees=trees,
+        wall_s=wall, qps=len(queries) / wall,
+        latency_p50_s=float(np.percentile(lat, 50)),
+        latency_p99_s=float(np.percentile(lat, 99)),
+        roots_per_dispatch=totals["roots"] / max(totals["batches"], 1),
+        direct_s=direct_s, launches=launches, front=front,
+        counters={k: totals[k] for k in (
+            "served", "failed", "retries", "dispatch_failures",
+            "cancelled", "expired", "batches")},
+        stream_levels=levels,
+        exchange_s_mean=float(np.mean(exchange_s)) if exchange_s else None,
+        compute_s_mean=float(np.mean([row["compute_s"] for row in rows]))
+        if rows else None)
+
+
+def sharded_probes(rank, group, device, path16):
+    """The front's probes on the phase-3 graph (`SHARDED_PROBES`), one
+    server over the same ranks: each probe must end with its typed outcome
+    at the front, and the next query (sharded, 2 roots) must be served and
+    pass the oracle's check. Followers return their counts."""
+    import torch.distributed as dist
+    from repro_torch.engine import (BFSServer, GraphSession, PartitionFront,
+                                    follow)
+    from repro_torch.runtime import faults
+    n = dist.get_world_size(group)
+    g16 = load_graph(path16)
+    sessions = {"g16": GraphSession(g16, device)}
+    if rank != 0:
+        return dict(follow=follow(sessions, group))
+    roots = [int(r) for r in np.argsort(g16.degrees)[::-1][:2]]
+    server = BFSServer(sessions, front=PartitionFront(group))
+    outcomes = {}
+    try:
+        for name, schedule, stream, want in SHARDED_PROBES:
+            with faults.fault_scope(schedule):
+                h = server.submit(
+                    "g16", roots, backend="stepper" if stream else "sharded",
+                    n_parts=n, stream=stream)
+                try:
+                    if stream:
+                        for _row in h.stream(RANK_TIMEOUT):
+                            if name == "cancel":
+                                h.cancel()
+                    h.result(RANK_TIMEOUT).validate(g16)
+                    got = "served"
+                except (faults.FaultInjected, RuntimeError) as e:
+                    got = type(e).__name__
+            assert got == want, (name, got, want)
+            nxt = server.submit("g16", roots, backend="sharded", n_parts=n)
+            nxt.result(RANK_TIMEOUT).validate(g16)
+            outcomes[name] = got
+    finally:
+        server.close()
+    st = server.stats()
+    return dict(outcomes=outcomes, front=st["front"], counters={
+        k: st["totals"][k] for k in ("served", "failed", "retries",
+                                     "cancelled")})
 
 
 def sharded_kernel_checks(calls, device):
@@ -1649,8 +1836,10 @@ def sharded_phase(args, g16, g22, rng, record, entries, path22):
     """Phase 5s: the partitioned BSP search on gloo ranks that share the
     card. Parity at PARITY_SCALE (P = 2 and 4, CUDA ranks against CPU
     ranks), then the full-size run (P = 4, specialized) on the --scale
-    graph saved to `path22` (phase 5r attaches it too); the sharded
-    kernels' counts, errors and times join their `entries`."""
+    graph saved to `path22` (phase 5r attaches it too) with the served
+    load and the front's probes on the same ranks; the sharded kernels'
+    counts (searches and served load), errors and times join their
+    `entries`."""
     import tempfile
     from repro_torch.parallel import ranks
     record["sharded"] = rec = dict(note=SHARDED_NOTE)
@@ -1677,11 +1866,16 @@ def sharded_phase(args, g16, g22, rng, record, entries, path22):
         rec["save_s"] = time.perf_counter() - t0
         roots22 = rng.choice(np.flatnonzero(g22.degrees > 0), 7,
                              replace=False)
+        L = SHARDED_LOAD
+        serve_roots = np.random.default_rng([args.seed, 21]).choice(
+            np.flatnonzero(g22.degrees > 0),
+            L["clients"] * L["queries_per_client"] * L["batch"],
+            replace=False)
         n, strategy = SHARDED_FULL
         t0 = time.perf_counter()
         outs = ranks.run_ranks(sharded_full_rank, n, tmp,
-                               args=(path22, roots22), backend="gloo",
-                               timeout=RANK_TIMEOUT)
+                               args=(path22, roots22, path16, serve_roots),
+                               backend="gloo", timeout=RANK_TIMEOUT)
         rec["full_s"] = time.perf_counter() - t0
     r0 = outs[0]
     rec["full"] = outs
@@ -1715,15 +1909,55 @@ def sharded_phase(args, g16, g22, rng, record, entries, path22):
             f"{k} {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, bound "
             f"{t['bound_ms']:.4f}) at {t['shapes']}"
             for k, t in r0["kernel_times"].items()))
+    sv = r0["served"]
+    served_launches = [o["served"]["launches"] for o in outs]
+    for rank, got in enumerate(served_launches):
+        for k in SHARDED_KERNELS:
+            assert got.get(k, 0) > 0, f"served: rank {rank}: {k} not launched"
+    front = sv["front"]
+    for o in outs[1:]:
+        for part, f in (("served", front), ("probes", r0["probes"]["front"])):
+            got = o[part]["follow"]
+            assert (got["runs"], got["aborts"]) == (
+                f["dispatches"], f["agreed_aborts"]), (o["rank"], part, got)
+    c = sv["counters"]
+    assert (c["served"], c["failed"]) == (sv["queries"], 0), c
+    rec["served"] = dict(sv, follower_launches=served_launches[1:],
+                         probes=r0["probes"])
+    log(f"  served (sharded serving, {record['card']}): {sv['queries']} "
+        f"queries ({SHARDED_LOAD['clients']} clients x "
+        f"{SHARDED_LOAD['queries_per_client']} x {SHARDED_LOAD['batch']} "
+        f"roots, every {SHARDED_LOAD['stream_every']}rd streamed, psum and "
+        f"bitmap) on P = {n} ranks, front rank 0: {sv['qps']:.3f} QPS, p50 "
+        f"{sv['latency_p50_s']:.3f} s, p99 {sv['latency_p99_s']:.3f} s, "
+        f"{sv['roots_per_dispatch']:.2f} roots a dispatch, {sv['trees']} "
+        f"trees pass the Graph500 check and equal Engine.bfs on the same "
+        f"ranks ({sv['direct_s']:.1f} s); the served part {r0['served_s']:.1f}"
+        f" s, the probes {r0['probes_s']:.1f} s")
+    log(f"  served counters: {c}; front: {front['dispatches']} dispatches, "
+        f"{front['agreements']} agreements, {front['agreed_aborts']} agreed "
+        f"aborts, {front['agreement_s'] * 1e3:.2f} ms in agreements "
+        f"({front['agreement_s_mean'] * 1e3:.3f} ms each) against "
+        f"exchange_s {sv['exchange_s_mean'] * 1e3:.2f} ms and compute_s "
+        f"{sv['compute_s_mean'] * 1e3:.2f} ms a streamed level")
+    log(f"  served launches by rank: "
+        + "; ".join(f"rank {r} {got}" for r, got in enumerate(
+            served_launches)))
+    pr = r0["probes"]
+    log(f"  probes on the scale-{PARITY_SCALE} graph: {pr['outcomes']}, each "
+        f"followed by a served query; counters {pr['counters']}; front "
+        f"{pr['front']['agreed_aborts']} agreed aborts, followers back in "
+        f"their loop")
     for entry in entries:
         name = entry["name"]
         if name not in SHARDED_KERNELS:
             continue
         per_rank = [o["launches"].get(name, 0) for o in outs]
+        served = [got.get(name, 0) for got in served_launches]
         t = r0["kernel_times"][name]
         entry.update(
-            launches=entry["launches"] + sum(per_rank),
-            sharded_launches=per_rank,
+            launches=entry["launches"] + sum(per_rank) + sum(served),
+            sharded_launches=per_rank, served_launches=served,
             max_abs_err=max(entry["max_abs_err"], r0["errs"][name]),
             sharded_ms=t["ms"], sharded_plain_ms=t["plain_ms"],
             sharded_bound_ms=t["bound_ms"])

@@ -10,14 +10,21 @@ and the concurrent query server.
     handle = server.submit("web", [root0, root1], client="alice")
     result = handle.result(timeout=60)
     server.close()
+
+Partitioned plans are served on rank 0 of a group through a
+`PartitionFront` while the other ranks run `follow` (see
+`partition_front`).
 """
 from repro_torch.engine.engine import (AUTO_SHARD_MIN_EDGES, BACKENDS,
                                        Engine, QueryPlan)
-from repro_torch.engine.level_loop import (BSPStepBackend,
+from repro_torch.engine.level_loop import (AgreedAbort, AgreedControl,
+                                           BSPStepBackend,
                                            CohortBatchBackend, LevelDriver,
                                            QueryCancelled, QueryControl,
                                            QueryDeadlineExceeded,
                                            SingleStepBackend)
+from repro_torch.engine.partition_front import (PartitionFront,
+                                                PartitionLost, follow)
 from repro_torch.engine.queueing import (BatchPopError, BoundedPriorityQueue,
                                          CircuitBreaker, ClientCaps,
                                          QueueClosed, QueueFull, RetryPolicy,
@@ -33,6 +40,8 @@ __all__ = ["Engine", "GraphSession", "TraversalResult", "BACKENDS",
            "LevelDriver", "SingleStepBackend", "BSPStepBackend",
            "CohortBatchBackend",
            "QueryControl", "QueryCancelled", "QueryDeadlineExceeded",
+           "AgreedControl", "AgreedAbort",
+           "PartitionFront", "PartitionLost", "follow",
            "BFSServer", "QueryHandle", "ServerOverloaded", "ServerClosed",
            "BoundedPriorityQueue", "ClientCaps", "QueueFull", "QueueClosed",
            "BatchPopError", "CircuitBreaker", "RetryPolicy",

@@ -58,7 +58,8 @@ from repro_torch.engine.level_loop import (BSPStepBackend,
                                            CohortBatchBackend, LevelDriver,
                                            QueryCancelled, QueryControl,
                                            QueryDeadlineExceeded,
-                                           SingleStepBackend, fence)
+                                           SingleStepBackend, check_point,
+                                           fence)
 from repro_torch.engine.result import (TraversalResult,
                                        edges_traversed_from_levels)
 from repro_torch.engine.session import GraphSession
@@ -215,9 +216,12 @@ class Engine:
             level with `batch_index == -1` on the batched fused path, one
             row per root per level (`batch_index` = root position) on the
             stepper.
-          control: `QueryControl` checked before dispatch, between roots,
-            and once per level; aborts raise `QueryCancelled` /
-            `QueryDeadlineExceeded` carrying the partial per-level stats.
+          control: `QueryControl` checked before dispatch, between roots
+            (but not on the batched sharded path) and once per level;
+            aborts raise `QueryCancelled` / `QueryDeadlineExceeded`
+            carrying the partial per-level stats. An `AgreedControl` makes
+            each of these check points an agreement of the partitioned
+            query's group (`engine.partition_front`).
         """
         qp = self.plan(cfg, backend=backend, n_parts=n_parts,
                        strategy=strategy,
@@ -236,12 +240,11 @@ class Engine:
             raise ValueError("on_level streaming needs backend='stepper' or "
                              "the batched fused path, got "
                              f"{plan.backend!r} (batched={batched})")
-        if control is not None:
-            control.check()
-        # Chaos hook: simulated device/memory pressure at query entry
-        # (non-transient `DevicePressure`: the degradation chain, not the
-        # retry loop, is the recovery path).
-        fault_point("device", backend=plan.backend)
+        # The control's entry check, then the chaos hook: simulated
+        # device/memory pressure at query entry (non-transient
+        # `DevicePressure`: the degradation chain, not the retry loop, is
+        # the recovery path).
+        check_point(control, ("device", dict(backend=plan.backend)))
         roots_arr = self._normalize_roots(roots)
         if roots_arr.size == 0:
             v = self.graph.num_vertices
@@ -411,8 +414,7 @@ class Engine:
         except (QueryCancelled, QueryDeadlineExceeded) as e:
             e.per_level_stats = [e.per_level_stats]
             raise
-        if control is not None:
-            control.check()             # the warm-up may outlive a deadline
+        check_point(control)            # the warm-up may outlive a deadline
         parents, levels, stats_all, timings, per_root = [], [], [], [], []
         for i, r in enumerate(roots_arr):
             cb = (lambda row, _i=i: on_level(_i, row)) if on_level else None
@@ -458,16 +460,15 @@ class Engine:
         sess.warm(("sharded_warm", hcfg, use) + pkey,
                   lambda: search_fn(roots_new[0]))
         outs, per_root = [], []
+        fctx = dict(mode="sharded", kernels=kernels)
         if batched:
-            # One fault point for the whole batch, as the reference's one
-            # pipelined dispatch has.
-            fault_point("dispatch", mode="sharded", kernels=kernels)
+            # One fault point for the whole batch and no control check past
+            # the entry's, as the reference's one pipelined dispatch has.
+            check_point(control, ("dispatch", fctx), check=False)
         t_all = time.perf_counter()
         for rn in roots_new:
-            if control is not None:
-                control.check()
             if not batched:
-                fault_point("dispatch", mode="sharded", kernels=kernels)
+                check_point(control, ("dispatch", fctx))
             t0 = time.perf_counter()
             outs.append(search_fn(rn))
             fence(sess.device)

@@ -32,11 +32,20 @@ seconds as the row's `compute_s` and `exchange_s` (the paper's Fig. 3
 breakdown). For the other backends `compute_s` is the level's seconds and
 `exchange_s` is 0.0.
 
-Before each level's step the driver passes two fault sites
+Before each level's step the driver passes one check point
+(`check_point`): the control's check, then two fault sites
 (`runtime.faults`): `straggler` (a scheduled delay) and `dispatch` (a
 scheduled raise, before the step runs, so the state is never
 half-advanced), each with the level and the backend's `fault_ctx` (the
 engine's description of the dispatch: mode and formulation).
+
+A partitioned query served through a front (`engine.partition_front`)
+runs on every rank of its group, and every rank must leave it at the same
+point: its control is an `AgreedControl`, which makes each check point one
+agreement of the group. The front alone polls the query's control and
+runs the point's fault sites, then broadcasts the outcome; each rank acts
+on it there (the front re-raises its own exception, a follower raises
+`AgreedAbort`). Any other control keeps the single-rank code path.
 """
 from __future__ import annotations
 
@@ -46,6 +55,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import bfs as B
 from repro_torch.core.hybrid_bfs import finalize_hybrid
@@ -122,6 +132,107 @@ class QueryControl:
         err = self.poll()
         if err is not None:
             raise err
+
+
+class AgreedAbort(RuntimeError):
+    """A follower's end of a partitioned query that the front aborted at a
+    check point; `kind` is the front's outcome ("cancelled", "deadline" or
+    "fault"). The follower's search stops there, with the front's."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+        super().__init__(f"the front aborted the query at a check point "
+                         f"({kind})")
+
+
+# An agreement's outcome, broadcast as its index (0: go on).
+_OUTCOMES = ("go", "cancelled", "deadline", "fault")
+
+
+def _outcome(err: Optional[BaseException]) -> int:
+    if err is None:
+        return 0
+    if isinstance(err, QueryCancelled):
+        return 1
+    return 2 if isinstance(err, QueryDeadlineExceeded) else 3
+
+
+class AgreedControl(QueryControl):
+    """The control of one partitioned query on one rank of its group.
+
+    Each `check(*sites)` is one agreement over `channel` (a gloo group of
+    the same ranks): on the front (`is_front`, rank 0) it polls `inner`
+    (the query's own control; None: never aborts) and runs the fault sites,
+    each a (site, ctx) pair, then broadcasts the outcome; every rank waits
+    for it. The front re-raises its own exception (and keeps it in
+    `abort`), a follower raises `AgreedAbort`. `on_agree(seconds, aborted)`
+    (front only) receives each broadcast's seconds. Cancel and poll go to
+    `inner`.
+    """
+
+    def __init__(self, inner: Optional[QueryControl], channel, is_front: bool,
+                 on_agree: Optional[Callable] = None):
+        super().__init__(None)
+        self.inner = inner
+        self.channel = channel
+        self.is_front = is_front
+        self.abort: Optional[BaseException] = None
+        self._src = dist.get_global_rank(channel, 0)
+        self._on_agree = on_agree
+
+    def cancel(self) -> None:
+        if self.inner is not None:
+            self.inner.cancel()
+
+    @property
+    def cancelled(self) -> bool:
+        return self.inner is not None and self.inner.cancelled
+
+    @property
+    def expired(self) -> bool:
+        return self.inner is not None and self.inner.expired
+
+    def poll(self) -> Optional[RuntimeError]:
+        return None if self.inner is None else self.inner.poll()
+
+    def check(self, *sites, control: bool = True) -> None:
+        """One agreement: `inner`'s check (unless `control` is False) and
+        the fault `sites` on the front, the outcome on every rank."""
+        err = None
+        if self.is_front:
+            try:
+                if control and self.inner is not None:
+                    self.inner.check()
+                for site, ctx in sites:
+                    fault_point(site, **ctx)
+            except Exception as e:  # noqa: BLE001 — every rank must learn it
+                err = e
+        flag = torch.tensor([_outcome(err)], dtype=torch.int64)
+        t0 = time.perf_counter()
+        dist.broadcast(flag, src=self._src, group=self.channel)
+        if self.is_front:
+            if self._on_agree is not None:
+                self._on_agree(time.perf_counter() - t0, err is not None)
+            if err is not None:
+                self.abort = err
+                raise err
+        elif int(flag[0]):
+            raise AgreedAbort(_OUTCOMES[int(flag[0])])
+
+
+def check_point(control: Optional[QueryControl], *sites,
+                check: bool = True) -> None:
+    """One check point of a query: the control's check (unless `check` is
+    False), then the fault `sites`, each a (site, ctx) pair, in order. With
+    an `AgreedControl` it is one agreement of the query's group; otherwise
+    it runs here, on this rank alone."""
+    if isinstance(control, AgreedControl):
+        control.check(*sites, control=check)
+        return
+    if check and control is not None:
+        control.check()
+    for site, ctx in sites:
+        fault_point(site, **ctx)
 
 
 def fence(device: torch.device) -> None:
@@ -325,8 +436,9 @@ class LevelDriver:
 
         `root` is what the backend's `init` takes. `on_level(row)` fires the
         moment each level's stats land on the host. `control` is checked
-        once per level before stepping; on abort the typed error carries the
-        rows completed so far. `timings` holds the out-of-loop phases
+        once per level before stepping (`check_point`, with the level's
+        fault sites); on abort the typed error carries the rows completed
+        so far. `timings` holds the out-of-loop phases
         (init_s, agg_s) and `driver_overhead_s`, the wall time the host loop
         spent outside the timed steps.
         """
@@ -339,15 +451,13 @@ class LevelDriver:
         stats: list = []
         pre = host_sync(b.scalars(state))
         while pre["nf"] > 0 and pre["cur"] < b.depth_bound:
-            if control is not None:
-                try:
-                    control.check()
-                except (QueryCancelled, QueryDeadlineExceeded) as e:
-                    e.per_level_stats = stats
-                    raise
-            fctx = getattr(b, "fault_ctx", None) or {}
-            fault_point("straggler", level=pre["cur"], **fctx)
-            fault_point("dispatch", level=pre["cur"], **fctx)
+            fctx = dict(level=pre["cur"], **(getattr(b, "fault_ctx", None)
+                                             or {}))
+            try:
+                check_point(control, ("straggler", fctx), ("dispatch", fctx))
+            except (QueryCancelled, QueryDeadlineExceeded) as e:
+                e.per_level_stats = stats
+                raise
             t0 = time.perf_counter()
             if split:
                 work = b.compute(state, pre)

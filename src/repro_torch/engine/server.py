@@ -4,12 +4,13 @@ The port of the JAX package's `engine/server.py`, with its API, queues,
 micro-batching, streaming, cancellation, supervision, retries, circuit
 breaker and degradation chain. Sessions run on the GPU unless a `device`
 is named; each worker thread binds its session's device before its first
-dispatch. Partitioned plans (`n_parts > 1`) are refused at submit: in the
-port every rank must run a partitioned query, so serving one needs a front
-end that hands each dispatch to every rank (ROADMAP.md queue 1 item 9).
-Two sessions on one card share it: a level's seconds (timed up to a
-device-wide `torch.cuda.synchronize`) then include the other session's
-queued work, so they are not solo numbers.
+dispatch. Partitioned plans (`n_parts > 1`) are served on rank 0 of the
+sessions' group through a `partition_front.PartitionFront` (`front=`),
+which hands each dispatch, and every check point's outcome, to the ranks
+that run `partition_front.follow`; without one a partitioned plan is
+refused at submit. Two sessions on one card share it: a level's seconds
+(timed up to a device-wide `torch.cuda.synchronize`) then include the
+other session's queued work, so they are not solo numbers.
 
 The paper's premise is that a BFS is a *query* against a preprocessed,
 partitioned graph — Totem-style systems amortize partitioning/compilation
@@ -82,6 +83,7 @@ from repro_torch.core.graph import Graph
 from repro_torch.engine.engine import Engine, QueryPlan
 from repro_torch.engine.level_loop import (QueryCancelled, QueryControl,
                                      QueryDeadlineExceeded)
+from repro_torch.engine.partition_front import PartitionFront, PartitionLost
 from repro_torch.engine.queueing import (BatchPopError, BoundedPriorityQueue,
                                    CircuitBreaker, ClientCaps, QueueClosed,
                                    QueueFull, RetryPolicy, ServerOverloaded,
@@ -307,6 +309,10 @@ class BFSServer:
       device: where sessions made from a `Graph` live; None is the GPU,
         and raises without one (`repro_torch.device.resolve_device`). A
         `GraphSession` keeps its own device.
+      front: the `PartitionFront` of the sessions' process group (made on
+        its rank 0 while the other ranks run `partition_front.follow`):
+        partitioned plans dispatch through it, one at a time, and
+        `close()` closes it. None refuses partitioned plans at submit.
     """
 
     def __init__(self, graphs: Optional[Dict[str, Union[Graph, GraphSession]]]
@@ -319,7 +325,8 @@ class BFSServer:
                  max_worker_restarts: int = 5,
                  restart_backoff_s: float = 0.05,
                  restart_backoff_max_s: float = 2.0,
-                 autostart: bool = True, device=None):
+                 autostart: bool = True, device=None,
+                 front: Optional[PartitionFront] = None):
         if batch_window_ms < 0:
             raise ValueError(
                 f"batch_window_ms must be >= 0, got {batch_window_ms}")
@@ -337,6 +344,7 @@ class BFSServer:
         self.restart_backoff_s = restart_backoff_s
         self.restart_backoff_max_s = restart_backoff_max_s
         self.device = device
+        self.front = front
         _ensure_sanitizer()   # REPRO_SANITIZE=1 instruments the locks below
         self._caps = ClientCaps(max_inflight_per_client)
         self._engines: Dict[str, Engine] = {}
@@ -478,6 +486,10 @@ class BFSServer:
             remaining = (None if deadline is None
                          else max(0.0, deadline - time.monotonic()))
             timer.join(remaining)
+        # The followers leave their loop once no dispatch can start.
+        if self.front is not None:
+            self.front.close(None if deadline is None
+                             else max(0.0, deadline - time.monotonic()))
         # Close the sessions on the SAME deadline: each joins its pre-warm
         # thread and drops its device tensors and published plans (the
         # workers that used them are joined).
@@ -516,6 +528,10 @@ class BFSServer:
         the stepper backend; either way `result()` raises
         `QueryDeadlineExceeded`. `handle.cancel()` uses the same path with
         `QueryCancelled`.
+
+        A partitioned plan (`n_parts > 1`) needs a group of `n_parts`
+        ranks for the session and the server's `front` over it, else
+        `ValueError`; once the group is lost it raises `PartitionLost`.
         """
         if self._closed:
             raise ServerClosed("server is closed")
@@ -541,11 +557,7 @@ class BFSServer:
                         strategy=strategy,
                         hub_edge_fraction=hub_edge_fraction)
         if plan.n_parts > 1:
-            raise ValueError(
-                f"the server does not serve partitioned plans yet (n_parts="
-                f"{plan.n_parts}): every rank must run a partitioned query, "
-                "which needs a front end that hands each dispatch to every "
-                "rank (ROADMAP.md queue 1 item 9, sharded serving)")
+            self._front_for(eng, plan.n_parts).check()
         roots_arr = eng._normalize_roots(roots)
         if roots_arr.size == 0:
             raise ValueError("cannot submit an empty root batch")
@@ -577,6 +589,19 @@ class BFSServer:
             raise ServerClosed("server is closed") from None
         handle._cancel_cb = lambda: self._withdraw_cancelled(session, item)
         return handle
+
+    def _front_for(self, eng: Engine, n_parts: int) -> PartitionFront:
+        """The front that serves `eng`'s `n_parts`-partition plans; raises
+        `ValueError` when the session has no group of `n_parts` ranks
+        (`GraphSession.group_for`) or the server no front over it."""
+        group = eng.session.group_for(n_parts)
+        if self.front is None or self.front.group is not group:
+            raise ValueError(
+                f"a {n_parts}-partition plan is served through a "
+                "PartitionFront over the session's group: pass BFSServer("
+                "front=PartitionFront(group)) on its rank 0 and run "
+                "partition_front.follow(sessions, group) on the others")
+        return self.front
 
     def _withdraw_cancelled(self, session: str, item: _QueryItem) -> None:
         """Pull a cancelled query out of its queue, if it is still there.
@@ -736,11 +761,15 @@ class BFSServer:
         batch = live
         t0 = time.perf_counter()
         try:
-            results = self._dispatch(eng, batch)
+            results = self._dispatch(name, eng, batch)
         except (QueryCancelled, QueryDeadlineExceeded) as e:
             for it in batch:
                 self._abort(name, it, e)
             self._count(name, busy_s=time.perf_counter() - t0)
+            return
+        except PartitionLost as e:
+            self._count(name, busy_s=time.perf_counter() - t0)
+            self._partition_lost(name, batch, e)
             return
         except Exception as e:  # noqa: BLE001 — every failure is handled
             self._count(name, dispatch_failures=1,
@@ -764,7 +793,34 @@ class BFSServer:
                     edges_traversed=edges,
                     busy_s=time.perf_counter() - t0)
 
-    def _dispatch(self, eng: Engine, batch: list) -> list:
+    def _run(self, name: str, eng: Engine, roots, plan: QueryPlan, *,
+             batched: bool = True, on_level=None, control=None):
+        """`eng.bfs_plan`, on every rank of the group through the front
+        for a partitioned plan."""
+        if plan.n_parts > 1:
+            return self._front_for(eng, plan.n_parts).run(
+                eng, name, roots, plan, batched=batched, on_level=on_level,
+                control=control)
+        return eng.bfs_plan(roots, plan, batched=batched, on_level=on_level,
+                            control=control)
+
+    def _partition_lost(self, name: str, batch: list,
+                        err: PartitionLost) -> None:
+        """The group that runs partitioned plans is lost: fail `batch`
+        (popped from `name`) and every queued partitioned query with
+        `err`."""
+        with self._state_lock:
+            queues = list(self._queues.items())
+        failed = [(name, it) for it in batch]
+        for qname, q in queues:
+            failed += [(qname, it) for it in
+                       q.remove(lambda queued: queued.plan.n_parts > 1)]
+        for qname, it in failed:
+            if it.handle._fail(err):
+                self._caps.release(it.client)
+                self._count(qname, failed=1)
+
+    def _dispatch(self, name: str, eng: Engine, batch: list) -> list:
         """One engine dispatch for a worker batch -> per-item results."""
         first = batch[0]
         if first.stream:
@@ -772,8 +828,8 @@ class BFSServer:
             # cohort path streams batch-level rows (b == -1, per-lane
             # vectors inside the row) — `root=-1` marks the latter.
             h = first.handle
-            res = eng.bfs_plan(
-                first.roots, first.plan, control=first.control,
+            res = self._run(
+                name, eng, first.roots, first.plan, control=first.control,
                 on_level=lambda b, row, _r=first.roots: h._push(
                     dict(row, root=int(_r[b]) if b >= 0 else -1)))
             return [res]
@@ -784,8 +840,9 @@ class BFSServer:
         # and per-level abort points); a coalesced dispatch is one
         # shared search, so its members are only cancellable
         # at the dispatch gate.
-        merged = eng.bfs_plan(
-            np.concatenate([it.roots for it in batch]), first.plan,
+        merged = self._run(
+            name, eng, np.concatenate([it.roots for it in batch]),
+            first.plan,
             control=batch[0].control if len(batch) == 1 else None)
         return merged.split([len(it.roots) for it in batch])
 
@@ -870,10 +927,13 @@ class BFSServer:
                 if it.stream else None
             t0 = time.perf_counter()
             try:
-                res = eng.bfs_plan(it.roots, p, batched=batched,
-                                   control=it.control, on_level=cb)
+                res = self._run(name, eng, it.roots, p, batched=batched,
+                                control=it.control, on_level=cb)
             except (QueryCancelled, QueryDeadlineExceeded) as e:
                 self._abort(name, it, e)
+                return
+            except PartitionLost as e:
+                self._partition_lost(name, [it], e)
                 return
             except Exception:  # noqa: BLE001 — fall through the chain
                 self._count(name, dispatch_failures=1)
@@ -910,7 +970,8 @@ class BFSServer:
         `GraphSession.runtime_stats()`: builds by kind, warm-ups run, the
         kernel build's seconds, plan loads and shares, plan sources, the
         pre-warm's progress and, with a cache dir, the artifact cache's
-        counters.
+        counters. With a front, `front` holds its counters
+        (`PartitionFront.stats`).
         """
         with self._state_lock:
             queues = list(self._queues.items())
@@ -929,6 +990,9 @@ class BFSServer:
             if name in per:
                 per[name]["runtime"] = engine.session.runtime_stats()
                 per[name]["breaker"] = self._breakers[name].snapshot()
-        return dict(sessions=per, totals=totals,
-                    max_queue_depth=self.max_queue_depth,
-                    clients_capped_at=self._caps.max_inflight)
+        out = dict(sessions=per, totals=totals,
+                   max_queue_depth=self.max_queue_depth,
+                   clients_capped_at=self._caps.max_inflight)
+        if self.front is not None:
+            out["front"] = self.front.stats()
+        return out

@@ -598,6 +598,7 @@ digest = hashlib.sha256(np.ascontiguousarray(res.parent).tobytes()
                         + np.ascontiguousarray(res.level).tobytes())
 print(json.dumps(dict(
     setup_s=setup_s, first_query_s=first_query_s, root=root,
+    num_vertices=g.num_vertices,
     builds=rt["builds"].get("cohort", 0), loads=rt["loads"],
     parts={k: rt[k] for k in PARTS},
     prewarm=rt["prewarm"], cache=rt.get("artifact_cache"),
@@ -624,6 +625,8 @@ def run_restart_probe(cache_dir: str, *, scale: int = 10,
     pre-warms every plan: `warm_compiles == 0` and `warm_builds == 0`
     prove it, with its trees equal to the cold child's. `cold_parts` and
     `warm_parts` split each start's session seconds (`RESTART_PARTS`).
+    The record names the graph by `num_vertices` and `scale` (with a
+    file: log2 of its vertex count, None when that is not a power of two).
 
     `corrupt_library` (a GPU) then replaces the bottom-up library's entry
     with garbage and runs a third child (repair): the load fails, the
@@ -684,8 +687,12 @@ def run_restart_probe(cache_dir: str, *, scale: int = 10,
     cold, warm = phases["cold"], phases["warm"]
     cache = warm.get("cache") or {}
     prewarm = warm.get("prewarm") or {}
+    v = cold["num_vertices"]
+    if graph_path is not None:      # the file's size, not the RMAT knob
+        scale = v.bit_length() - 1 if v > 0 and v & (v - 1) == 0 else None
     out = dict(
-        scale=scale, graph_path=graph_path, cache_dir=cache_dir,
+        scale=scale, num_vertices=v, graph_path=graph_path,
+        cache_dir=cache_dir,
         device=dev, root=cold["root"],
         cold_start_s=cold["first_query_s"],
         warm_start_s=warm["first_query_s"],

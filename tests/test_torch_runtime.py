@@ -706,6 +706,22 @@ def test_prewarm_error_is_visible_and_queries_still_build(tmp_path,
 
 # ------------------------------------------------ subprocess cold / warm --
 
+def test_restart_probe_records_the_graph_file_size(tmp_path):
+    """A probe on a saved graph records that graph's size (scale 8 here),
+    not the default RMAT scale, and its children attach that graph."""
+    from repro_torch.launch import bfs_serve
+    g = TG.rmat(8, seed=5)
+    path = str(tmp_path / "g8.npz")
+    np.savez(path, v=g.num_vertices, indptr=g.indptr, indices=g.indices,
+             degrees=g.degrees)
+    out = bfs_serve.run_restart_probe(str(tmp_path / "cache"),
+                                      graph_path=path, device="cpu",
+                                      timeout=300)
+    assert (out["scale"], out["num_vertices"]) == (8, 256)
+    assert out["graph_path"] == path
+    assert out["root"] == int(g.degrees.argmax()) and out["same_trees"]
+
+
 def test_subprocess_cold_then_warm_restart(tmp_path):
     """Two processes on one cache dir: the warm one builds no cohort plan
     on its query path, pre-warms the whole set, and its trees equal the

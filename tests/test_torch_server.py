@@ -10,7 +10,8 @@ on the two RMAT scale-9 graphs of `tests/test_server.py`.
   that cannot degrade, the breaker, a build fault, device pressure), with
   `kernels=pallas` written `kernels=tiles` for the port and each query's
   formulation given explicitly, both servers count the same events;
-* a partitioned plan is refused with a typed error naming ROADMAP.md.
+* a partitioned plan on a session with no group of `n_parts` ranks is
+  refused at submit.
 """
 import threading
 import time
@@ -428,11 +429,14 @@ def test_cuda_chain_never_runs_gather(monkeypatch):
 
 
 def test_partitioned_plans_are_refused():
+    """With no group of `n_parts` ranks a partitioned plan is refused at
+    submit (`GraphSession.group_for`); it is served through a front on a
+    group (tests/test_torch_sharded_server.py)."""
     server = PORT.Server(_graphs(PORT))
     try:
-        with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 9"):
+        with pytest.raises(ValueError, match="2 partitions need a torch"):
             server.submit("g0", [0, 1], backend="sharded", n_parts=2)
-        with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 9"):
+        with pytest.raises(ValueError, match="4 partitions need a torch"):
             server.submit("g0", [0], backend="stepper", n_parts=4)
         assert _counters(server, "g0")["served"] == 0
     finally:
