@@ -8,6 +8,17 @@ nothing of the JAX package. Phases, in order (any failure ends the run with
 a nonzero exit; nothing is caught):
 
 1. Device: the card's name and power limit, then the kernels' build time.
+1c. Contracts: for every kernel instance the paths launch (the pull at 1,
+   8 and 16 lanes and its lane packer, the push and the fresh entry, the
+   packing kernel per lanes_block with the bitmap and without, decode
+   attention at gemma2-9b's, yi-9b's and stablelm-3b's bf16 shapes), what
+   `cudaFuncGetAttributes` reports through the sources' attribute entry
+   points: the contract model's static shared bytes must equal the
+   compiler's (and decode's dynamic bytes the source's Layout), registers
+   stay within the `__launch_bounds__` cap, threads within the instance's
+   maximum, and the launchers' occupancy queries give >= 1 block an SM;
+   local (spill) bytes are printed. Then `python -m repro_torch.analysis
+   src/repro_torch --kernel-contracts` must exit 0.
 2. Each of the ten BFS kernel entries against its plain PyTorch version
    on random inputs (ragged R, V not a multiple of 32, masked lanes,
    degree-0 rows, B in {1, 8}, rows of width 32 to 262,144), bitwise; the
@@ -41,7 +52,11 @@ a nonzero exit; nothing is caught):
 4. The paths at full size, through `Engine.bfs` on Graph500 RMAT at
    --scale (generated once): unsplit (8 roots batched, then 4 in Graph500
    mode), hub split (the same), and 2 roots through the stepper (each on
-   a fresh bucket warms first, inside the path's run). Launch counts are
+   a fresh bucket warms first, inside the path's run), on a session with
+   `RuntimeConfig(strict_contracts=True)`: every plan passes the kernel-
+   contract gate, no warning. A strict session with a 16 KiB budget then
+   refuses the cohort plan (`KernelBudgetError`) before any launch. Launch
+   counts are
    reset just before each path and read just after it; each path must
    have launched each of its kernels. Every tree passes a vectorised
    Graph500 check. Then each kernel is held against its plain version on
@@ -70,7 +85,8 @@ a nonzero exit; nothing is caught):
    session and on a CPU session over the same group: trees and rows
    equal; rank 0 validates the default case's trees. Full size on the
    --scale graph: P = 4, specialized, 4 roots `sharded` (Graph500 mode), 2
-   `stepper` and 1 `stepper` with the bitmap exchange; each rank's launch
+   `stepper` and 1 `stepper` with the bitmap exchange, each rank's session
+   strict (its sharded plan passes the contract gate); each rank's launch
    counts are zeroed just before and read just after, and `bottomup`,
    `topdown_push` and `frontier_fused` must each have launched. Rank 0
    holds the trees against the Graph500 check and its captured calls of
@@ -272,6 +288,112 @@ def max_abs_err(a, b) -> int:
     if a.numel() == 0:
         return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+# --------------------------------------------------------------- contracts --
+
+# The decode shapes phase 1c asks the compiler about: batch 4 at the serve
+# run's context, each model's (g, h) in bf16.
+CONTRACT_DECODE = ("gemma2-9b", "yi-9b", "stablelm-3b")
+# A per-CTA budget below the 8-lane pull instance's static shared memory:
+# a strict session under it must refuse the cohort plan before any launch.
+TIGHT_SMEM = 16 * 1024
+
+
+def attributes(dev, inst) -> dict:
+    """What `cudaFuncGetAttributes` reports of a contract's kernel instance,
+    through its library's `repro_<lib>_attributes` entry point."""
+    import ctypes
+    from repro_torch.kernels import _build
+    out = (ctypes.c_int * 6)()
+    err = _build.function(f"{inst.library}_attributes", dev.index)(
+        *inst.selectors, ctypes.addressof(out), dev.index)
+    assert err == 0, f"{inst.library}_attributes{inst.selectors}: {err}"
+    return dict(zip(("shared", "regs", "local", "max_threads",
+                     "max_dynamic", "dynamic"), out))
+
+
+def contract_instances(dev):
+    """(label, instance, blocks an SM holds or None) for every kernel
+    instance the paths launch: the pull at 1, 8 and 16 lanes (staged with
+    more than one) and the lane packer a packed plan runs first, the push
+    and the fresh entry, the packing kernel with the bitmap and without
+    per lanes_block, and decode attention at three models' shapes. The
+    blocks an SM holds come from the launchers' occupancy queries."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import bottomup, decode_attn, frontier_fused
+    from repro_torch.kernels import contracts as KC
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = []
+    for lb in (1, 8, 16):
+        out.append((f"pull lanes_block {lb}", KC.pull_instance(lb),
+                    bottomup.resident_blocks(dev, lb)))
+    for lb in (8, 16):
+        out.append((f"pull's lane packer {lb}", KC.pack_instance(lb), None))
+    for lb in (1, 8, 16):
+        out.append((f"push lanes_block {lb}", KC.push_instance(lb), None))
+    out.append(("fresh entry", KC.fresh_instance(), None))
+    for lb in (1, 2, 4, 8):
+        for packed in (False, True):
+            out.append((f"packing lanes_block {lb}"
+                        f"{' with the bitmap' if packed else ''}",
+                        KC.fused_instance(lb, packed),
+                        frontier_fused.resident_blocks(dev, lb, packed)))
+    for arch in CONTRACT_DECODE:
+        cfg = get_config(arch)
+        g, h = cfg.n_heads // cfg.n_kv, cfg.head_dim
+        res = decode_attn.resident_blocks(dev, torch.bfloat16, g, h)
+        b, s = SERVE["batch"], SERVE["prompt_len"] + SERVE["gen"]
+        nsplit, _ = decode_attn.split_plan(b, cfg.n_kv, s, sms, res)
+        out.append((f"decode {arch} (bf16, g {g}, h {h}, {nsplit} splits)",
+                    KC.decode_instance("bfloat16", g, h, nsplit), res))
+    return out
+
+
+def phase_contracts(dev, record):
+    """Phase 1c: the contract model against the compiler, for every kernel
+    instance the paths launch: static shared bytes equal, registers within
+    the launch bounds' cap, threads within the instance's maximum, blocks
+    an SM holds >= 1, decode's dynamic bytes equal to the source's Layout;
+    then the analysis CLI with the kernel-contract gate must exit 0."""
+    from repro_torch.analysis import smem
+    rows = []
+    for label, inst, resident in contract_instances(dev):
+        a = attributes(dev, inst)
+        rep = smem.smem_report(inst)
+        row = dict(label=label, symbol=inst.symbol, threads=inst.threads,
+                   model_static=inst.static_bytes,
+                   model_dynamic=inst.dynamic_bytes,
+                   register_cap=inst.register_cap, resident=resident, **a)
+        rows.append(row)
+        log(f"  {label}: {inst.symbol}: static shared {a['shared']} B "
+            f"(model {inst.static_bytes}), dynamic {a['dynamic']} B "
+            f"(model {inst.dynamic_bytes}), {a['regs']} registers (cap "
+            f"{inst.register_cap}), local {a['local']} B, max threads "
+            f"{a['max_threads']}, max dynamic {a['max_dynamic']} B, "
+            f"{'resident ' + str(resident) if resident else 'no query'}")
+        assert a["shared"] == inst.static_bytes, (label, a, inst)
+        assert a["dynamic"] == inst.dynamic_bytes, (label, a, inst)
+        assert a["regs"] <= inst.register_cap, (label, a, inst)
+        assert inst.threads <= a["max_threads"], (label, a, inst)
+        assert resident is None or resident >= 1, (label, resident)
+        assert rep.fits, (label, rep.problems)
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "src/repro_torch",
+         "--kernel-contracts"], cwd=REPO, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=os.path.join(REPO, "src")))
+    cli_s = time.perf_counter() - t0
+    assert cli.returncode == 0, cli.stdout + cli.stderr
+    record["contracts"] = dict(instances=rows, cli_s=cli_s,
+                               cli=cli.stdout.strip().splitlines()[-1])
+    log(f"phase 1c: {len(rows)} kernel instances on {record['card']}: the "
+        f"model's static shared bytes equal the compiler's, registers "
+        f"within the launch bounds, no more threads than each takes; "
+        f"`python -m repro_torch.analysis src/repro_torch "
+        f"--kernel-contracts` exit 0 in {cli_s:.2f} s "
+        f"({record['contracts']['cli']})")
 
 
 # ------------------------------------------------------------ kernel checks --
@@ -1275,16 +1397,22 @@ def bfs_paths(args, rng, dev, record, errs):
     """Phases 4, 2b and 5: the BFS paths on Graph500 RMAT at --scale.
     Returns the kernels line's entries of the ten BFS kernel entries and
     the graph (host arrays only)."""
+    import warnings
+
     import torch
     from repro_torch.core import graph as G
     from repro_torch.engine import Engine
     from repro_torch.kernels import ops
+    from repro_torch.kernels.contracts import (KernelBudgetError,
+                                               KernelContractWarning)
     from repro_torch.core import ell as ELL
     from repro_torch.core.bfs import BFSConfig
+    from repro_torch.runtime import RuntimeConfig
     t0 = time.perf_counter()
     g = G.rmat(args.scale, seed=args.seed)
     record["graph_s"] = time.perf_counter() - t0
-    engine = Engine(g)
+    # strict: a plan whose kernels fail their contract would raise
+    engine = Engine(g, runtime=RuntimeConfig(strict_contracts=True))
     t1 = time.perf_counter()
     engine.session.device_graph()
     ell = engine.session.ell_tiles()
@@ -1311,11 +1439,14 @@ def bfs_paths(args, rng, dev, record, errs):
     runs = {}
 
     def drive(name, label, fn):
-        """One path's run: counts zeroed just before, read just after."""
+        """One path's run: counts zeroed just before, read just after; a
+        contract warning is an error."""
         path[0] = name
         ops.reset_launches()
         t = time.perf_counter()
-        res = fn()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", KernelContractWarning)
+            res = fn()
         wall = time.perf_counter() - t
         got = {k: ops.LAUNCHES[k] for k in BFS_KERNELS}
         for k in PATH_KERNELS[name]:
@@ -1340,6 +1471,35 @@ def bfs_paths(args, rng, dev, record, errs):
     restore()
     record["runs"] = runs
     record["launches"] = launches
+    gated = sorted(engine.session._contract_checked, key=repr)
+    assert gated, "the strict session gated no plan"
+    # what the gate costs a new plan key: its report again on each key
+    from repro_torch.analysis.kernel_contracts import contract_report
+    t = time.perf_counter()
+    for key in gated:
+        assert contract_report(key, engine.session._graph_shape).feasible
+    gate_ms = (time.perf_counter() - t) / len(gated) * 1e3
+    # a strict session under a budget below the 8-lane pull's static
+    # shared memory refuses the cohort plan before any build or launch
+    tight = Engine(g, runtime=RuntimeConfig(strict_contracts=True,
+                                            smem_budget_bytes=TIGHT_SMEM))
+    before = dict(ops.LAUNCHES)
+    try:
+        tight.bfs(roots[:8])
+    except KernelBudgetError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("the under-budget strict session built its "
+                             "cohort plan")
+    assert dict(ops.LAUNCHES) == before, "launches across the refusal"
+    assert not tight.session._executables
+    tight.session.close()
+    record["gate"] = dict(plans=len(gated), ms_per_key=gate_ms,
+                          refusal=refusal[:300])
+    log(f"phase 4: the strict session's gate passed {len(gated)} plans "
+        f"({gate_ms:.3f} ms a key, once per key); under a {TIGHT_SMEM} B "
+        f"budget the cohort plan is refused before any launch: "
+        f"{refusal[:160]}")
     check = Graph500Check(g, dev)
     n_trees = trees_ok(check, batched, g500, split_b, split_g, stepper)
     for key, res in (("batched", batched), ("split", split_b)):
@@ -1577,11 +1737,14 @@ def sharded_full_rank(rank, group, device, graph_path, roots, path16,
     from repro_torch.engine import Engine
     from repro_torch.engine.level_loop import fence
     from repro_torch.kernels import ops
+    from repro_torch.runtime import RuntimeConfig
     n, strategy = SHARDED_FULL
     assert dist.get_world_size(group) == n
     t0 = time.perf_counter()
     g = load_graph(graph_path)
-    eng = Engine(g, device=device, default_strategy=strategy)
+    # strict: the partitioned plan passes its contract gate or raises
+    eng = Engine(g, device=device, default_strategy=strategy,
+                 runtime=RuntimeConfig(strict_contracts=True))
     plan, pg = eng.session.partitioned(n)
     ell = eng.session.hybrid_ell(n)
     fence(device)
@@ -1604,6 +1767,8 @@ def sharded_full_rank(rank, group, device, graph_path, roots, path16,
                      backend="stepper", n_parts=n)
     out["wall_s"] = time.perf_counter() - t1
     out["launches"] = {k: c for k, c in ops.LAUNCHES.items() if c}
+    out["gated"] = sorted(k[0] for k in eng.session._contract_checked)
+    assert "sharded" in out["gated"], f"rank {rank}: sharded plan not gated"
     for k in SHARDED_KERNELS:
         assert ops.LAUNCHES[k] > 0, f"rank {rank}: {k} never launched"
     out.update(
@@ -2530,6 +2695,9 @@ def main() -> int:
     record["build_s"] = build_s
     log(f"phase 1: built {len(_build.SOURCES)} kernel sources in "
         f"{build_s:.3f} s ({_build.BUILD_DIR})")
+
+    # 1c. the kernel contracts against the compiler, the analysis gate
+    phase_contracts(dev, record)
 
     # 2. kernels against their plain versions, random inputs
     errs = {n: 0 for n in BFS_KERNELS}

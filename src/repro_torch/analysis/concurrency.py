@@ -37,9 +37,8 @@ or reentrancy.
 
 The cycle check is conservative by design: it reports *potential* deadlocks
 (inconsistent acquisition order observed across threads), not only
-deadlocks that actually occurred. The JAX package's static half of the
-same contract (its AST lock-scope rule) is not ported yet (ROADMAP.md
-queue 1 item 10).
+deadlocks that actually occurred. The static half of the same contract
+is the linter's lock-scope rule (LS001, `repro_torch.analysis.rules`).
 """
 from __future__ import annotations
 

@@ -236,7 +236,7 @@ def _gather_push(indices, ptr, deg, src, lane, visited, pcand,
     deg = deg.to(torch.int64)
     ptr = ptr.to(torch.int64)
     cum = torch.cumsum(deg, 0)
-    total = int(cum[-1])
+    total = int(cum[-1])  # repro-ok: TH002 sizes the gather chunk loop
     vis = visited.reshape(-1)
     out = pcand.view(-1)
     for s0 in range(0, total, GATHER_SLOTS):

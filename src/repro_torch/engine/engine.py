@@ -451,6 +451,10 @@ class Engine:
         kernels = "tiles" if use else "gather"
         ell = None
         if use:
+            # the JAX package gates this plan in `session.executable`; the
+            # port caches the search with `cached`, so it gates it here,
+            # before the kernels, the tiles or the search are built
+            sess._contract_gate(("sharded", hcfg) + pkey)
             sess.ensure_kernels()
             ell = sess.hybrid_ell(*pkey)
         search_fn, root_mapper = sess.cached(

@@ -216,8 +216,8 @@ class AgreedControl(QueryControl):
             if err is not None:
                 self.abort = err
                 raise err
-        elif int(flag[0]):
-            raise AgreedAbort(_OUTCOMES[int(flag[0])])
+        elif int(flag[0]):  # repro-ok: TH002 a CPU tensor (gloo channel)
+            raise AgreedAbort(_OUTCOMES[int(flag[0])])  # repro-ok: TH002 same
 
 
 def check_point(control: Optional[QueryControl], *sites,
@@ -238,7 +238,7 @@ def check_point(control: Optional[QueryControl], *sites,
 def fence(device: torch.device) -> None:
     """Wait for the device's queued work (a timing fence); no-op on CPU."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.synchronize(device)  # repro-ok: TH001 the timing fence
 
 
 # ----------------------------------------------------------------- backend --

@@ -150,6 +150,7 @@ class PartitionFront:
                     self._send(("beat",))
                     self._count(beats=1)
             except Exception as e:  # noqa: BLE001 — a follower is gone
+                # repro-ok: LS001 _lock held: acquired by hand above
                 self.lost = PartitionLost(f"heartbeat failed: {e!r}")
             finally:
                 self._lock.release()
@@ -214,7 +215,9 @@ class PartitionFront:
                 try:
                     self._send(("close",))
                 except Exception as e:  # noqa: BLE001 — a follower is gone
+                    # repro-ok: LS001 _lock held: acquired by hand above
                     self.lost = PartitionLost(f"close failed: {e!r}")
+            # repro-ok: LS001 _lock held: acquired by hand above
             self._closed = True
         finally:
             self._lock.release()

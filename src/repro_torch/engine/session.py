@@ -60,6 +60,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+import warnings
 from typing import Any, Callable, Optional
 
 import torch
@@ -198,6 +199,8 @@ class GraphSession:
         # and building its tiles (0.0 for what it took from another)
         self._seconds = dict(fingerprint_s=0.0, csr_s=0.0, tiles_s=0.0)
         self._graph_fp: Optional[str] = None
+        self._contract_checked: set = set()  # plan keys the gate passed
+        self._graph_shape = None         # GraphShape, made at the first gate
         self._artifacts = artifact_cache_for(self.runtime)
         self._pool_cv = make_condition(make_lock("session.pool"),
                                        "session.pool")
@@ -327,6 +330,7 @@ class GraphSession:
                          device=self.device)
         with self._stats_lock:
             self._kernel_build_s += time.perf_counter() - t0
+        # repro-ok: LS001 an idempotent flag: a racing caller only calls the build (under its own lock) again
         self._kernels_built = True
 
     def cached(self, key, build: Callable[[], Any], *,
@@ -422,15 +426,63 @@ class GraphSession:
     def executable(self, key, build: Callable[[], Callable]) -> Callable:
         """Plan `key`'s step function: from the pre-warm pool, else the
         registry (`share_plans`), else `build()` on the query path (once
-        process-wide), whose record is then written to the cache."""
+        process-wide), whose record is then written to the cache. A new
+        key passes the kernel-contract gate (`_contract_gate`) first."""
         fn = self._executables.get(key)
         if fn is not None:
             return fn
+        self._contract_gate(key)
         fn = self._take_pooled(key)
         if fn is None:
             fn = self._plan_handle(key, build).resolve()
         with self._lock:
             return self._executables.setdefault(key, fn)
+
+    def _contract_gate(self, key) -> None:
+        """Static kernel-contract check of a plan before anything of it is
+        taken or built (the pool, the registry, a build): once per key.
+
+        Applies to the tiles formulation only: a cohort plan
+        ("cohort", cfg, use_kernels, bucket, variant) whose `use_kernels`
+        is set, and the partitioned search's ("sharded", hcfg, n_parts,
+        strategy, hub), which `Engine` gates before it builds that search.
+        Runs `repro_torch.analysis.kernel_contracts.contract_report` on
+        this graph's shape (memoized) under the session runtime's
+        `smem_budget_bytes`. An infeasible plan warns once
+        (`KernelContractWarning`); under `strict_contracts` it raises
+        `KernelBudgetError` and is not marked checked, so a retry refuses
+        again. The contract model's own errors propagate.
+        """
+        if key in self._contract_checked or not isinstance(key, tuple):
+            return
+        if key[:1] == ("cohort",) and not key[2]:
+            return                      # the gather formulation: no kernel
+        if key[:1] not in (("cohort",), ("sharded",)):
+            return
+        from repro_torch.analysis.kernel_contracts import (GraphShape,
+                                                           contract_report)
+        from repro_torch.kernels.contracts import (KernelBudgetError,
+                                                   KernelContractWarning)
+        with self._lock:
+            if key in self._contract_checked:
+                return
+            if self._graph_shape is None:
+                self._graph_shape = GraphShape.from_graph(self.graph)
+            report = contract_report(
+                key, self._graph_shape,
+                budget_bytes=self.runtime.smem_budget_bytes)
+            if report.feasible:
+                self._contract_checked.add(key)
+                return
+            first = report.errors[0]
+            msg = (f"plan {key!r} fails its kernel contract: "
+                   f"{report.summary()}; first error: [{first.kernel}] "
+                   f"{first.rule} {first.message}")
+            if self.runtime.strict_contracts:
+                # NOT marked checked: a strict retry must refuse again.
+                raise KernelBudgetError(msg)
+            self._contract_checked.add(key)
+        warnings.warn(msg, KernelContractWarning, stacklevel=3)
 
     def _registered(self, key, make: Callable[[], Any]) -> Any:
         """The registry's entry for `key` under this graph's content and
@@ -481,11 +533,14 @@ class GraphSession:
     # ------------------------------------------------------------- prewarm --
 
     def _start_prewarm(self) -> None:
+        # repro-ok: LS001 called only from __init__, before the session is shared with any other thread
         self.prewarm_progress = PrewarmProgress()
+        # repro-ok: LS001 attach-time init; the session object publishes it
         self._scanning = True            # queries wait for the scan
         # Non-daemon: a thread killed inside a CUDA call at interpreter
         # exit can abort the process. The pass is bounded (prewarm_limit
         # plans) and checks a stop flag, so joining at exit is cheap.
+        # repro-ok: LS001 attach-time init; Thread.start() below is the publication barrier
         self._prewarm_thread = threading.Thread(
             target=self._prewarm_pass, name="bfs-session-prewarm",
             daemon=False)
@@ -535,6 +590,7 @@ class GraphSession:
                 fn = self._plan_handle(key, self.plan_build(key)).resolve(
                     "prewarmed")
                 if self.device.type == "cuda":
+                    # repro-ok: TH001 pre-warm thread, off the query path: its plan's first work is done before the pool serves it
                     torch.cuda.synchronize(self.device)
                 with self._pool_cv:
                     self._pool[key] = fn
@@ -678,6 +734,7 @@ class GraphSession:
             t.join(timeout)
             if t.is_alive():
                 return False
+        # repro-ok: LS001 close() is single-caller teardown; the thread was joined above
         self._prewarm_thread = None
         with self._lock, self._stats_lock:
             published, self._published = self._published, []

@@ -53,25 +53,35 @@ ENTRY_POINTS = {
                  [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _I,
                   _I64, _I64, _I, _I, _P]),
     "bottomup_resident": ("repro_bottomup_resident", [_I, _P, _I]),
+    "bottomup_attributes": ("repro_bottomup_attributes", [_I, _I, _P, _I]),
     "decode_attn": ("repro_decode_attention",
                     [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                      _I64, _I64, _F, _F, _I, _I, _P]),
     "decode_attn_resident": ("repro_decode_attention_resident",
                              [_I64, _I64, _I, _P, _I]),
+    "decode_attn_attributes": ("repro_decode_attention_attributes",
+                               [_I64, _I64, _I, _I64, _P, _I]),
     "frontier_fused": ("repro_frontier_fused_batch",
                        [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I64,
                         _I, _P]),
     "frontier_fused_resident": ("repro_frontier_fused_resident",
                                 [_I, _I, _P, _I]),
+    "frontier_fused_attributes": ("repro_frontier_fused_attributes",
+                                  [_I, _I, _P, _I]),
     "topdown": ("repro_topdown_batch",
                 [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _P]),
     "topdown_push": ("repro_topdown_push",
                      [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I,
                       _P]),
+    "topdown_attributes": ("repro_topdown_attributes", [_I, _I, _P, _I]),
 }
 LIBRARY = {"decode_attn_resident": "decode_attn",
            "bottomup_resident": "bottomup", "topdown_push": "topdown",
-           "frontier_fused_resident": "frontier_fused"}
+           "frontier_fused_resident": "frontier_fused",
+           "bottomup_attributes": "bottomup",
+           "decode_attn_attributes": "decode_attn",
+           "frontier_fused_attributes": "frontier_fused",
+           "topdown_attributes": "topdown"}
 
 _lock = threading.RLock()      # builds and first loads
 _functions: dict = {}          # entry point name -> ctypes function

@@ -32,6 +32,9 @@ DEEP = {1: 8, 8: 16, 16: 16}
 # ends two warp steps later, so that a 256-slot hub row ends in it.
 THREAD_SLOTS = FIRST + 32
 WARP_SLOTS = THREAD_SLOTS + 2 * CHUNK
+# `__launch_bounds__(kThreads, kLanes == 1 ? 4 : 3)`: the blocks of the
+# pull kernel's instance an SM must hold at once, by lanes_block
+MIN_BLOCKS = {1: 4, 8: 3, 16: 3}
 # Pack the frontier's lanes into words when R * PACK_RATIO >= V: packing
 # reads the [B, V] frontier once, and then every gather serves a whole
 # lane block instead of one lane.

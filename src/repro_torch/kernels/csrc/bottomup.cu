@@ -586,3 +586,39 @@ extern "C" int repro_bottomup_resident(int lanes_block, int* resident,
   return static_cast<int>(
       pull::dispatch(pull::Args{}, lanes_block, 0, nullptr, resident));
 }
+
+// What the compiler made of one instance, for the kernel contracts
+// (`kernels/contracts.py`): out[0..5] = sharedSizeBytes, numRegs,
+// localSizeBytes, maxThreadsPerBlock and maxDynamicSharedSizeBytes of
+// cudaFuncGetAttributes, then the dynamic shared bytes its launch asks for
+// (none). `kernel` 0 is pull_kernel<lanes_block> (1, 8 or 16), 1 the
+// pack_kernel<lanes_block> a packed plan runs first (8 or 16). Launches
+// nothing.
+extern "C" int repro_bottomup_attributes(int kernel, int lanes_block,
+                                         int* out, int device) {
+  pull::DeviceScope scope(device);
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (kernel == 0) {
+    switch (lanes_block) {
+      case 1: err = cudaFuncGetAttributes(&fa, pull::pull_kernel<1>); break;
+      case 8: err = cudaFuncGetAttributes(&fa, pull::pull_kernel<8>); break;
+      case 16: err = cudaFuncGetAttributes(&fa, pull::pull_kernel<16>); break;
+      default: break;
+    }
+  } else if (kernel == 1) {
+    switch (lanes_block) {
+      case 8: err = cudaFuncGetAttributes(&fa, pull::pack_kernel<8>); break;
+      case 16: err = cudaFuncGetAttributes(&fa, pull::pack_kernel<16>); break;
+      default: break;
+    }
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = static_cast<int>(fa.sharedSizeBytes);
+  out[1] = fa.numRegs;
+  out[2] = static_cast<int>(fa.localSizeBytes);
+  out[3] = fa.maxThreadsPerBlock;
+  out[4] = fa.maxDynamicSharedSizeBytes;
+  out[5] = 0;
+  return 0;
+}

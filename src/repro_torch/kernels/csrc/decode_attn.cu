@@ -553,3 +553,52 @@ extern "C" int repro_decode_attention_resident(int64_t g, int64_t h,
   if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);
 }
+
+namespace {
+
+template <typename T>
+cudaError_t attributes_of(int g, cudaFuncAttributes* fa) {
+  if (g <= 1) return cudaFuncGetAttributes(fa, decode_attn_kernel<T, 1>);
+  if (g <= 2) return cudaFuncGetAttributes(fa, decode_attn_kernel<T, 2>);
+  if (g <= 4) return cudaFuncGetAttributes(fa, decode_attn_kernel<T, 4>);
+  if (g <= 8) return cudaFuncGetAttributes(fa, decode_attn_kernel<T, 8>);
+  return cudaFuncGetAttributes(fa, decode_attn_kernel<T, 16>);
+}
+
+}  // namespace
+
+// What the compiler made of the instance a launch at (g, h, dtype) runs,
+// for the kernel contracts (`kernels/contracts.py`): out[0..5] =
+// sharedSizeBytes, numRegs, localSizeBytes, maxThreadsPerBlock and
+// maxDynamicSharedSizeBytes of cudaFuncGetAttributes (the last as the
+// launches so far have set it), then the dynamic shared bytes a launch of
+// `nsplit` splits asks for (the Layout's total). Launches nothing.
+extern "C" int repro_decode_attention_attributes(int64_t g, int64_t h,
+                                                 int dtype, int64_t nsplit,
+                                                 int* out, int device) {
+  if (h < 1 || h > 256 || g < 1 || g > kMaxGroup || nsplit < 1 ||
+      nsplit > kMaxSplits || (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int prev = device;
+  cudaGetDevice(&prev);
+  if (prev != device) cudaSetDevice(device);
+  cudaFuncAttributes fa;
+  const cudaError_t err = dtype == 0
+                              ? attributes_of<float>(static_cast<int>(g), &fa)
+                              : attributes_of<__nv_bfloat16>(
+                                    static_cast<int>(g), &fa);
+  if (prev != device) cudaSetDevice(prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int esize = dtype == 0 ? 4 : 2;
+  const Layout L(static_cast<int>(h), static_cast<int>(g), esize,
+                 dtype == 0 ? stages_of<float>() : stages_of<__nv_bfloat16>(),
+                 static_cast<int>(nsplit));
+  out[0] = static_cast<int>(fa.sharedSizeBytes);
+  out[1] = fa.numRegs;
+  out[2] = static_cast<int>(fa.localSizeBytes);
+  out[3] = fa.maxThreadsPerBlock;
+  out[4] = fa.maxDynamicSharedSizeBytes;
+  out[5] = static_cast<int>(L.total);
+  return 0;
+}

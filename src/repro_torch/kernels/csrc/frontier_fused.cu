@@ -329,3 +329,43 @@ extern "C" int repro_frontier_fused_resident(int lanes_block, int packed,
   if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);
 }
+
+namespace {
+
+template <int kLanes>
+cudaError_t attributes_of(int packed, cudaFuncAttributes* fa) {
+  return packed ? cudaFuncGetAttributes(fa, fused_kernel<kLanes, true>)
+                : cudaFuncGetAttributes(fa, fused_kernel<kLanes, false>);
+}
+
+}  // namespace
+
+// What the compiler made of the (lanes_block, packed) instance, for the
+// kernel contracts (`kernels/contracts.py`): out[0..5] = sharedSizeBytes,
+// numRegs, localSizeBytes, maxThreadsPerBlock and
+// maxDynamicSharedSizeBytes of cudaFuncGetAttributes, then the dynamic
+// shared bytes its launch asks for (none). Launches nothing.
+extern "C" int repro_frontier_fused_attributes(int lanes_block, int packed,
+                                               int* out, int device) {
+  int prev = device;
+  cudaGetDevice(&prev);
+  if (prev != device) cudaSetDevice(device);
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (lanes_block) {
+    case 1: err = attributes_of<1>(packed, &fa); break;
+    case 2: err = attributes_of<2>(packed, &fa); break;
+    case 4: err = attributes_of<4>(packed, &fa); break;
+    case 8: err = attributes_of<8>(packed, &fa); break;
+    default: break;
+  }
+  if (prev != device) cudaSetDevice(prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = static_cast<int>(fa.sharedSizeBytes);
+  out[1] = fa.numRegs;
+  out[2] = static_cast<int>(fa.localSizeBytes);
+  out[3] = fa.maxThreadsPerBlock;
+  out[4] = fa.maxDynamicSharedSizeBytes;
+  out[5] = 0;
+  return 0;
+}

@@ -320,3 +320,37 @@ extern "C" int repro_topdown_push(const void* deg, const void* nbrs,
   if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);
 }
+
+// What the compiler made of one instance, for the kernel contracts
+// (`kernels/contracts.py`): out[0..5] = sharedSizeBytes, numRegs,
+// localSizeBytes, maxThreadsPerBlock and maxDynamicSharedSizeBytes of
+// cudaFuncGetAttributes, then the dynamic shared bytes its launch asks for
+// (none). `kernel` 0 is the fresh entry's kernel (lanes_block 1), 1 the
+// push's push_kernel<lanes_block> (1, 8 or 16). Launches nothing.
+extern "C" int repro_topdown_attributes(int kernel, int lanes_block,
+                                        int* out, int device) {
+  int prev = device;
+  cudaGetDevice(&prev);
+  if (prev != device) cudaSetDevice(device);
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (kernel == 0 && lanes_block == 1) {
+    err = cudaFuncGetAttributes(&fa, topdown_batch_kernel);
+  } else if (kernel == 1) {
+    switch (lanes_block) {
+      case 1: err = cudaFuncGetAttributes(&fa, push::push_kernel<1>); break;
+      case 8: err = cudaFuncGetAttributes(&fa, push::push_kernel<8>); break;
+      case 16: err = cudaFuncGetAttributes(&fa, push::push_kernel<16>); break;
+      default: break;
+    }
+  }
+  if (prev != device) cudaSetDevice(prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = static_cast<int>(fa.sharedSizeBytes);
+  out[1] = fa.numRegs;
+  out[2] = static_cast<int>(fa.localSizeBytes);
+  out[3] = fa.maxThreadsPerBlock;
+  out[4] = fa.maxDynamicSharedSizeBytes;
+  out[5] = 0;
+  return 0;
+}

@@ -21,6 +21,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.contracts import KernelContractError
 
 NEG_INF = -1e30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -29,6 +30,14 @@ MAX_GROUP = 16       # query heads per kv head in one block
 # `kTile` and `kMaxSplits` in the source, which refuses a plan past either
 TILE = 32            # positions per tile
 MAX_SPLITS = 64
+# `kThreads`, `kWarps` and `kMaxRowGroups` in the source; `stages_of`: the
+# ring's stages by element type
+THREADS = 256
+WARPS = THREADS // 32
+MAX_ROW_GROUPS = 16
+STAGES = {"float32": 2, "bfloat16": 3}
+ELEMENT_BYTES = {"float32": 4, "bfloat16": 2}
+GROUP_INSTANCES = (1, 2, 4, 8, 16)    # the template's GM >= g
 
 # Per (device, stream): an int32 buffer of per-(b, kv head) counters that
 # the kernel leaves at zero, so it is zeroed once, not on every call (a
@@ -54,6 +63,36 @@ def split_plan(b: int, kk: int, s: int, sms: int,
     want = max(1, resident * sms // max(1, b * kk))
     per = -(-tiles // min(want, tiles, MAX_SPLITS))
     return -(-tiles // per), per * TILE
+
+
+def group_instance(g: int) -> int:
+    """The kernel instance's GM for g query heads (`dispatch` in the
+    source): the smallest of GROUP_INSTANCES at least g."""
+    for gm in GROUP_INSTANCES:
+        if g <= gm:
+            return gm
+    raise ValueError(f"decode_attention: g = {g} > {MAX_GROUP}")
+
+
+def shared_layout(dtype: str, g: int, h: int, nsplit: int) -> int:
+    """Dynamic shared bytes a block asks for (the source's `Layout`): the
+    ring of K/V stages (also holding the fold of the p.V subsets and the
+    splits' combine), q, the warps' partial dots, p, and m/l/corr, each
+    16-byte aligned. `dtype` "float32" or "bfloat16"."""
+    esize = ELEMENT_BYTES[dtype]
+    ce = 16 // esize
+    ch = -(-h // ce)
+    rb = (ch | 1) * 16
+    npg = min(THREADS // ch, MAX_ROW_GROUPS)
+    fold = npg * g * ch * ce * 4
+    combine = (2 * nsplit + 1) * g * 4
+    ring = max(2 * STAGES[dtype] * TILE * rb, fold)
+    ring = ring if ring > combine else -(-combine // 16) * 16
+    q = g * ch * ce * 4
+    part = WARPS * g * TILE * 4
+    p = g * TILE * 4
+    stats = -(-(3 * g * 4) // 16) * 16
+    return ring + q + part + p + stats
 
 
 def resident_blocks(device: torch.device, dtype: torch.dtype, g: int,
@@ -91,8 +130,9 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     g <= 16. S is split across blocks by `split_plan` (recorded in
     LAST_PLAN); the splits' fp32 partials go to scratch allocated here."""
     if q.dtype not in DTYPE_CODES:
-        raise ValueError(f"decode_attention: q is {q.dtype}; the kernel "
-                         f"takes {sorted(map(str, DTYPE_CODES))}")
+        raise KernelContractError(
+            f"decode_attention: q is {q.dtype}; the kernel takes "
+            f"{sorted(map(str, DTYPE_CODES))}")
     _build.require(q, q.dtype, 4, "decode_attention q")
     _build.require(k_cache, q.dtype, 4, "decode_attention k_cache")
     _build.require(v_cache, q.dtype, 4, "decode_attention v_cache")
@@ -102,7 +142,7 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     if (tuple(k_cache.shape) != (b, s, kk, h) or v_cache.shape != k_cache.shape
             or cache_len.shape[0] != b or not 1 <= h <= MAX_HEAD_DIM
             or not 1 <= g <= MAX_GROUP or b > 65535 or kk > 65535):
-        raise ValueError(
+        raise KernelContractError(
             f"decode_attention: q {tuple(q.shape)}, caches "
             f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}, cache_len "
             f"{tuple(cache_len.shape)} do not fit (B, K <= 65535, "

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core import frontier as fr
 from repro_torch.kernels import _build
+from repro_torch.kernels.contracts import require_grid
 
 # `kThreads` and `kMaxBlocks` in the source: threads per block (one word
 # each a tile), blocks a lane group at most
@@ -105,9 +106,9 @@ def frontier_fused_batch_cuda(flags: torch.Tensor, deg: torch.Tensor, *,
                          f"{dev} and deg {tuple(deg.shape)} on {deg.device} "
                          f"do not fit")
     lb = lane_block(b)
-    if -(-b // lb) > MAX_GROUPS:
-        raise ValueError(f"frontier_fused: {b} lanes, more than "
-                         f"{MAX_GROUPS} groups of {lb}")
+    require_grid("frontier_fused", f"lane groups of {lb} ({b} lanes)",
+                 -(-b // lb), MAX_GROUPS,
+                 hint="Split the lanes over several calls.")
     plan = fused_plan(
         b, v, torch.cuda.get_device_properties(dev).multi_processor_count,
         resident_blocks(dev, lb, packed))

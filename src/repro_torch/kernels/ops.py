@@ -20,7 +20,11 @@ under a lock, so concurrent server workers lose no count.
 
 The JAX wrappers also check that a lane's frontier fits the TPU's VMEM
 (`check_frontier_residency`). That is a TPU limit with no counterpart here:
-the CUDA kernels gather from device memory through L2.
+the CUDA kernels gather from device memory through L2. Their own limits
+(shared memory, registers and threads a block, the grid) are the kernel
+contracts' (`kernels/contracts.py`), which `GraphSession`'s gate checks
+before a plan is built, and the launchers raise `KernelContractError`
+subclasses on a shape they refuse.
 """
 from __future__ import annotations
 

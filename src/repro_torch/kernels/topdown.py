@@ -22,6 +22,43 @@ import torch
 from repro_torch.kernels import _build
 
 INT_MAX = 2**31 - 1
+# `kThreads` and `kSlots` of the fresh entry, `kThreads` and `kChunk` of
+# the push in the source: threads a block, slots a fresh thread, slots a
+# push work item
+THREADS = 256
+FRESH_SLOTS = 16
+PUSH_CHUNK = 32
+PUSH_WARPS = THREADS // 32
+
+
+def push_lane_block(b: int) -> int:
+    """The push instance for B lanes (the source's `repro_topdown_push`
+    picks it): lanes a block takes."""
+    return 1 if b == 1 else (8 if b <= 8 else 16)
+
+
+def push_plan(b: int, r: int, w: int, sms: int, resident: int) -> dict:
+    """The push's launch shape, which `push::launch` in the source computes
+    from the same numbers (SMs x its occupancy, cached per device): lane
+    groups of `lanes_block` lanes along grid y; work items of PUSH_CHUNK
+    slots, warp tiles of 32 items, as many blocks along x as the SMs hold
+    (shared among the groups) or as the tiles need."""
+    lb = push_lane_block(b)
+    groups = -(-b // lb)
+    chunks = -(-w // PUSH_CHUNK)
+    tiles = -(-(r * chunks) // 32)
+    want = -(-(sms * max(resident, 1)) // groups)
+    need = -(-tiles // PUSH_WARPS)
+    return dict(lanes_block=lb, groups=groups, chunks=chunks, tiles=tiles,
+                blocks=max(1, min(need, want)))
+
+
+def fresh_plan(b: int, c: int, w: int) -> dict:
+    """The fresh entry's launch shape (`repro_topdown_batch` in the
+    source): one thread a (lane, row, FRESH_SLOTS slots), lanes along
+    grid y."""
+    chunks = -(-w // FRESH_SLOTS)
+    return dict(chunks=chunks, blocks=-(-(c * chunks) // THREADS), lanes=b)
 
 
 def _launch(deg, nbrs, visited, dst):

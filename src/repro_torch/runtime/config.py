@@ -30,12 +30,20 @@ REPRO_FAULTS_SEED      int seed for probabilistic fault selectors
 REPRO_SANITIZE         '1'/'0': concurrency sanitizer (instrumented lock and
                        timer wrappers, `repro_torch.analysis.concurrency`).
                        Testing only
+REPRO_SMEM_BUDGET      per-CTA shared-memory budget of the kernel contracts
+                       (`repro_torch.analysis.smem`); int bytes or '227KB'
+                       (default 232,448 B, the H100's opt-in maximum), > 0
+REPRO_STRICT_CONTRACTS '1'/'0': a plan whose kernels fail their contract
+                       raises `KernelBudgetError` at `GraphSession`'s gate
+                       instead of warning (`KernelContractWarning`)
 =====================  =====================================================
 
-The JAX package's other fields (Pallas interpret mode, the fake host
-device count, tcmalloc and its launch environment, the VMEM budget and
-strict contracts) configure nothing here (ROADMAP.md queue 1 items 9-10).
-Parsing reads no device: resolving a config never initializes CUDA.
+`smem_budget_bytes` and `strict_contracts` are the counterparts of the JAX
+package's `vmem_budget_bytes` and `strict_contracts`, named for what they
+bound on this card. The JAX package's other fields (Pallas interpret mode,
+the fake host device count, tcmalloc and its launch environment)
+configure nothing here. Parsing reads no device: resolving a config never
+initializes CUDA.
 
 The module keeps one process-wide singleton (`get_runtime_config`), replaced
 by `configure(...)` and scoped by the `runtime_scope(...)` context manager
@@ -48,6 +56,8 @@ import dataclasses
 import os
 import threading
 from typing import Optional
+
+from repro_torch.analysis.smem import DEFAULT_SMEM_BUDGET
 
 _KERNELS = ("auto", "off")
 DEFAULT_CACHE_MAX_BYTES = 1 << 30            # 1 GiB
@@ -114,6 +124,9 @@ class RuntimeConfig:
     faults: Optional[str] = None             # fault schedule ('' / None = off)
     faults_seed: int = 0
     sanitize: bool = False                   # instrumented locks/timers
+    # -- kernel contracts (the session's gate) -------------------------------
+    smem_budget_bytes: int = DEFAULT_SMEM_BUDGET   # per-CTA shared memory
+    strict_contracts: bool = False           # failing plan: raise vs warn
 
     def __post_init__(self):
         if self.kernel_backend not in _KERNELS:
@@ -123,6 +136,9 @@ class RuntimeConfig:
         if self.cache_max_bytes <= 0:
             raise ValueError(
                 f"cache_max_bytes must be > 0, got {self.cache_max_bytes}")
+        if self.smem_budget_bytes <= 0:
+            raise ValueError(
+                f"smem_budget_bytes must be > 0, got {self.smem_budget_bytes}")
         if self.prewarm_limit < 0:
             raise ValueError(
                 f"prewarm_limit must be >= 0, got {self.prewarm_limit}")
@@ -169,6 +185,12 @@ class RuntimeConfig:
         if "REPRO_SANITIZE" in env:
             values["sanitize"] = _parse_bool(env["REPRO_SANITIZE"],
                                              name="REPRO_SANITIZE")
+        if "REPRO_SMEM_BUDGET" in env:
+            values["smem_budget_bytes"] = _parse_size(
+                env["REPRO_SMEM_BUDGET"], name="REPRO_SMEM_BUDGET")
+        if "REPRO_STRICT_CONTRACTS" in env:
+            values["strict_contracts"] = _parse_bool(
+                env["REPRO_STRICT_CONTRACTS"], name="REPRO_STRICT_CONTRACTS")
         for key, val in explicit.items():
             if val is None:
                 continue
