@@ -11,7 +11,9 @@ a nonzero exit; nothing is caught):
 1c. Contracts: for every kernel instance the paths launch (the pull at 1,
    8 and 16 lanes and its lane packer, the push and the fresh entry, the
    packing kernel per lanes_block with the bitmap and without, decode
-   attention at gemma2-9b's, yi-9b's and stablelm-3b's bf16 shapes), what
+   attention at the bf16 decode shapes of gemma2-9b, yi-9b, stablelm-3b,
+   qwen3-moe (g 16), llama4-maverick (g 5) and hymba (g 5, h 64, its
+   ring of 1,024 slots)), what
    `cudaFuncGetAttributes` reports through the sources' attribute entry
    points: the contract model's static shared bytes must equal the
    compiler's (and decode's dynamic bytes the source's Layout), registers
@@ -46,8 +48,9 @@ a nonzero exit; nothing is caught):
    `Engine(g, device="cpu")` on RMAT scale 16: 8 roots batched and 2 in
    Graph500 mode, heuristics paper and beamer, unsplit and with
    `hub_split=True`; 2 roots through `backend="stepper"`. Parents, levels
-   and the per-level rows must be equal. Serving parity (3b): gemma2-9b
-   and yi-9b smoke in fp32, prefill and 8 greedy decode steps on the card
+   and the per-level rows must be equal. Serving parity (3b): the
+   smoke configs of gemma2-9b, yi-9b, qwen3-moe, llama4-maverick, mamba2
+   and hymba in fp32, prefill and 8 greedy decode steps on the card
    against the same weights on the CPU: equal tokens, logits within 1e-4.
 4. The paths at full size, through `Engine.bfs` on Graph500 RMAT at
    --scale (generated once): unsplit (8 roots batched, then 4 in Graph500
@@ -175,6 +178,18 @@ a nonzero exit; nothing is caught):
    yardstick, and the host's cost of a launcher call; the kernel and SDPA
    at yi-9b's and stablelm-3b's decode shapes too; a profile of one
    decode step.
+6b. The moe, ssm and hybrid families through the same serve run, each at
+   every published width and freed before the next: qwen3-moe-235b-a22b
+   cut to 8 of its 94 layers, llama4-maverick-400b-a17b to one dense/MoE
+   pair, mamba2-2.7b and hymba-1.5b whole. For each: weights, prefill and
+   decode seconds, tokens/s, peak memory; the decode kernel's launches
+   (reset before, read after: its attention layers x 31, none for
+   mamba2) and its captured calls at the first and last step on layers 0
+   and 1 against the plain version; for the MoE models the share of top-k
+   assignments the capacity dropped at prefill and at decode (routed
+   again from the captured inputs); a profile of one decode step; the
+   kernel's time at the model's decode shape against its bound, its plain
+   version and one SDPA call.
 7. One JSON line listing the kernels, then the result line.
 
 `--out FILE` also writes the full record (timings, shapes, profiles) as
@@ -240,6 +255,16 @@ SDPA_TOL = 1e-2
 # decode_32k (B = 128, S = 32,768) to one card.
 SERVE = dict(arch="gemma2-9b", batch=4, prompt_len=4200, gen=32)
 OTHER_DECODE = ("yi-9b", "stablelm-3b")   # decode kernel timed at their shape
+# Phase 6b: the moe, ssm and hybrid families through the same serve run,
+# at every published width, (arch, depth cut): qwen3-moe's 94 layers
+# (~470 GB in bf16) cut to 8 (~41 GB with the embedding), llama4's 48 to
+# one dense/MoE pair (its MoE layer alone ~32 GB); mamba2 and hymba whole.
+FAMILY_SERVE = (("qwen3-moe-235b-a22b", dict(n_layers=8)),
+                ("llama4-maverick-400b-a17b", dict(n_layers=2)),
+                ("mamba2-2-7b", {}), ("hymba-1-5b", {}))
+# Phase 3b: the smoke configs served alike on the card and the CPU
+SERVE_PARITY = ("gemma2-9b", "yi-9b", "qwen3-moe-235b-a22b",
+                "llama4-maverick-400b-a17b", "mamba2-2-7b", "hymba-1-5b")
 SDPA_NOTE = ("F.scaled_dot_product_attention (enable_gqa, boolean mask from "
              "cache_len) computes the cap-0 function; no single PyTorch call "
              "computes the soft-capped one the model runs (cap 50)")
@@ -293,11 +318,20 @@ def max_abs_err(a, b) -> int:
 # --------------------------------------------------------------- contracts --
 
 # The decode shapes phase 1c asks the compiler about: batch 4 at the serve
-# run's context, each model's (g, h) in bf16.
-CONTRACT_DECODE = ("gemma2-9b", "yi-9b", "stablelm-3b")
+# run's context (hymba's ring of its window), each model's (g, h) in bf16.
+CONTRACT_DECODE = ("gemma2-9b", "yi-9b", "stablelm-3b", "qwen3-moe-235b-a22b",
+                   "llama4-maverick-400b-a17b", "hymba-1-5b")
 # A per-CTA budget below the 8-lane pull instance's static shared memory:
 # a strict session under it must refuse the cohort plan before any launch.
 TIGHT_SMEM = 16 * 1024
+
+
+def decode_len(cfg) -> int:
+    """The cache length a decode call of `cfg` reads at the serve run's
+    context: the whole context, but hymba's ring of `sliding_window`
+    slots."""
+    s = SERVE["prompt_len"] + SERVE["gen"]
+    return min(s, cfg.sliding_window) if cfg.family == "hybrid" else s
 
 
 def attributes(dev, inst) -> dict:
@@ -344,9 +378,10 @@ def contract_instances(dev):
         cfg = get_config(arch)
         g, h = cfg.n_heads // cfg.n_kv, cfg.head_dim
         res = decode_attn.resident_blocks(dev, torch.bfloat16, g, h)
-        b, s = SERVE["batch"], SERVE["prompt_len"] + SERVE["gen"]
+        b, s = SERVE["batch"], decode_len(cfg)
         nsplit, _ = decode_attn.split_plan(b, cfg.n_kv, s, sms, res)
-        out.append((f"decode {arch} (bf16, g {g}, h {h}, {nsplit} splits)",
+        out.append((f"decode {arch} (bf16, g {g}, h {h}, S {s}, {nsplit} "
+                    f"splits)",
                     KC.decode_instance("bfloat16", g, h, nsplit), res))
     return out
 
@@ -1284,7 +1319,7 @@ def phase_serve_parity(seed, dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst = 0.0
-    for arch in ("gemma2-9b", "yi-9b"):
+    for arch in SERVE_PARITY:
         cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
         cpu = M.init_params(cfg, torch.Generator().manual_seed(seed))
         gpu = copy.deepcopy(cpu).to(dev)
@@ -2660,6 +2695,196 @@ def serve_phase(args, dev, record, dec_err):
         library_note=SDPA_NOTE)
 
 
+def install_moe_capture():
+    """Wrap `models.moe.moe_ffn` to read the routing of every MoE call:
+    at prefill (S > 1) its dropped and total top-k assignments are summed
+    on the device as the call runs (no sync); a decode call's input is
+    kept (B x D) and routed after the run. Returns (counts, decode inputs,
+    restore)."""
+    from repro_torch.models import moe as MOE
+    saved, counts, decode_in = MOE.moe_ffn, {}, []
+
+    def fn(params, x, cfg):
+        if x.shape[1] > 1:
+            keep = MOE.route(params, x.reshape(-1, x.shape[-1]), cfg)[-1]
+            counts["dropped"] = counts.get("dropped", 0) + (~keep).sum()
+            counts["assignments"] = counts.get("assignments", 0) + keep.numel()
+        else:
+            decode_in.append((params, x))
+        return saved(params, x, cfg)
+
+    MOE.moe_ffn = fn
+
+    def restore():
+        MOE.moe_ffn = saved
+    return counts, decode_in, restore
+
+
+def moe_drops(cfg, counts, decode_in):
+    """The share of top-k assignments the capacity dropped, at prefill and
+    at decode, with each's capacity a call."""
+    from repro_torch.models import moe as MOE
+    dropped = sum(int((~MOE.route(p, x.reshape(-1, x.shape[-1]), cfg)[-1])
+                      .sum()) for p, x in decode_in)
+    total = sum(x.shape[0] * x.shape[1] * cfg.top_k for _, x in decode_in)
+    b, s0 = SERVE["batch"], SERVE["prompt_len"]
+    pre = dict(dropped=int(counts["dropped"]),
+               assignments=int(counts["assignments"]),
+               capacity=MOE.capacity(cfg, b * s0))
+    dec = dict(dropped=dropped, assignments=total,
+               capacity=MOE.capacity(cfg, b))
+    for d in (pre, dec):
+        d["share"] = d["dropped"] / d["assignments"]
+    return dict(prefill=pre, decode=dec)
+
+
+def family_phase(args, dev, record, entry):
+    """Phase 6b: qwen3-moe (8 of 94 layers), llama4-maverick (one dense/MoE
+    pair), mamba2-2.7b and hymba-1.5b at every published width through
+    `launch.serve.serve`, one after another, each freed before the next.
+    For each: the seconds, tokens/s and peak memory, the decode kernel's
+    launches (its attention layers x 31; none for mamba2) and its captured
+    calls against the plain version, the MoE models' dropped share of
+    top-k assignments at prefill and at decode, one decode step under the
+    profiler, and the kernel's time at the model's decode shape against
+    its bound and one SDPA call. Adds the launches and the worst error to
+    the kernels line's decode entry."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import decode_attn, ops
+    from repro_torch.launch import serve
+    from repro_torch.models import decode as D
+    from repro_torch.models import model as MODEL
+    b, s0, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    steps = gen - 1
+    flush = torch.empty(1 << 27, dtype=torch.uint8, device=dev)
+    fams = record["families"] = {}
+    t_phase = time.perf_counter()
+    for arch, cut in FAMILY_SERVE:
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        n_attn = sum(MODEL.layer_kind(cfg, i) != "ssm"
+                     for i in range(cfg.n_layers))
+        kept, restore_dec = install_decode_capture(n_attn or 1, steps)
+        counts, decode_in, restore_moe = install_moe_capture()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        try:
+            run = serve.serve(cfg, batch=b, prompt_len=s0, gen=gen,
+                              seed=args.seed, device=dev)
+            launches = ops.LAUNCHES["decode_attention"]
+        finally:
+            restore_dec()
+            restore_moe()
+        peak = torch.cuda.max_memory_allocated(dev)
+        assert launches == n_attn * steps, \
+            f"{arch}: decode_attention launched {launches} times, not " \
+            f"{n_attn} x {steps}"
+        assert run.tokens.shape == (b, gen), run.tokens.shape
+        assert tuple(run.logits.shape) == (b, cfg.vocab)
+        assert bool(torch.isfinite(run.logits).all()), f"{arch}: non-finite"
+        err = 0.0
+        if n_attn:
+            assert sorted((st, ly) for st, ly, *_ in kept) == [
+                (0, 0), (0, 1), (steps - 1, 0), (steps - 1, 1)], \
+                f"{arch}: capture missed"
+            for _, _, cargs, cap, out in kept:
+                err = max(err, decode_vs_plain(cargs, cap, out))
+        del kept
+        drops = moe_drops(cfg, counts, decode_in) if counts else None
+        del decode_in
+        rec = fams[cfg.name] = dict(
+            arch=arch, family=cfg.family, layers=cfg.n_layers,
+            published_layers=get_config(arch).n_layers,
+            attention_layers=n_attn, d_model=cfg.d_model, heads=cfg.n_heads,
+            kv_heads=cfg.n_kv, head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+            experts=cfg.n_experts, top_k=cfg.top_k, moe_d_ff=cfg.moe_d_ff,
+            ssm_heads=cfg.ssm_heads, ssm_state=cfg.ssm_state,
+            window=cfg.sliding_window, vocab=cfg.vocab, dtype=cfg.dtype,
+            params=sum(p.numel() for p in run.params.parameters()),
+            batch=b, prompt_len=s0, gen=gen, launches=launches,
+            max_abs_err=err, init_s=run.init_s, prefill_s=run.prefill_s,
+            decode_ms_per_step=run.decode_s / steps * 1e3,
+            tokens_per_s=steps * b / run.decode_s, peak_bytes=peak,
+            moe_drops=drops, tokens_head=run.tokens[:, :8].tolist())
+        drop_note = "" if drops is None else (
+            f"; capacity dropped {drops['prefill']['share']:.4f} of the "
+            f"top-{cfg.top_k} assignments at prefill (capacity "
+            f"{drops['prefill']['capacity']} a call) and "
+            f"{drops['decode']['share']:.4f} at decode (capacity "
+            f"{drops['decode']['capacity']})")
+        log(f"phase 6b: {cfg.name} ({cfg.family}, {cfg.n_layers} of "
+            f"{rec['published_layers']} layers, {rec['params'] / 1e9:.2f} G "
+            f"parameters, {cfg.dtype}), batch {b}, prompt {s0}, {gen} greedy "
+            f"tokens: weights {run.init_s:.1f} s, prefill "
+            f"{run.prefill_s:.3f} s, decode {rec['decode_ms_per_step']:.2f} "
+            f"ms/step ({rec['tokens_per_s']:.1f} tokens/s), peak memory "
+            f"{peak / 2**30:.2f} GiB; decode_attention launched {launches} = "
+            f"{n_attn} x {steps}"
+            + (f", its calls at steps 0 and {steps - 1} on layers 0 and 1 "
+               f"equal the plain version (max |kernel - plain| {err:.3g})"
+               if n_attn else "") + drop_note
+            + f"; tokens[0] {run.tokens[0, :8].tolist()}")
+
+        # one more decode step (the context's last position), profiled
+        pos = torch.full((b,), s0 + gen - 1, dtype=torch.int32, device=dev)
+        tok = torch.from_numpy(run.tokens[:, -1:].astype(np.int32)).to(dev)
+        prof = profile_decode_step(
+            lambda: D.decode_step(cfg, run.params, run.cache, tok, pos))
+        rec["decode_profile"] = prof
+        log(f"phase 6b: {cfg.name}: one decode step: wall "
+            f"{prof['wall_s'] * 1e3:.2f} ms, device busy "
+            f"{prof['device_busy_ms']:.2f} ms (idle share "
+            f"{prof['idle_share']:.3f}); decode_attention "
+            f"{prof['decode_attn_share']:.3f} of device time, matrix "
+            f"products {prof['matmul_share']:.3f}; top: "
+            + "; ".join(f"{r['op'][:40]} {r['device_ms']:.3f} ms x "
+                        f"{r['calls']}" for r in prof["top"][:4]))
+        del run, tok, pos
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the decode kernel at this model's shape, cache_len = the cache
+        if n_attn:
+            s = decode_len(cfg)
+            g = cfg.n_heads // cfg.n_kv
+            q, kc, vc, clen = decode_inputs(
+                np.random.default_rng([args.seed, 6]), dev, torch.bfloat16,
+                b, s, cfg.n_kv, g, cfg.head_dim, [s] * b)
+            t = time_decode(q, kc, vc, clen, flush)
+            nbytes, nops = decode_bound(q, kc, clen)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = nops / CUDA_CORE_OPS_PER_S * 1e3
+            t.update(decode_attn.LAST_PLAN, shape=[list(q.shape),
+                                                   list(kc.shape)],
+                     bytes=nbytes, ops=nops, bound_ms=max(t_bytes, t_ops),
+                     group_instance=decode_attn.group_instance(g))
+            for cap in ("50", "0"):
+                t[f"bound_share_cap{cap}"] = t["bound_ms"] / t[f"ms_cap{cap}"]
+            rec["decode_timing"] = t
+            log(f"phase 6b: decode_attention at {cfg.name}'s shape q "
+                f"{list(q.shape)} (g {g} on the GM = {t['group_instance']} "
+                f"instance), caches {list(kc.shape)} bf16, cache_len {s}, "
+                f"{t['nsplit']} splits of {t['split_len']} ({t['blocks']} "
+                f"blocks, {t['resident']} per SM resident): "
+                f"{t['ms_cap0']:.4f} ms at cap 0 ({t['bound_share_cap0']:.3f} "
+                f"of the bound), {t['ms_cap50']:.4f} ms at cap 50; plain "
+                f"{t['plain_ms_cap0']:.4f} ms; SDPA {t['library_ms_cap0']:.4f}"
+                f" ms; bound {t['bound_ms']:.4f} ms ({nbytes} bytes)")
+            del q, kc, vc
+        entry["launches"] += launches
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry.setdefault("family_launches", {})[cfg.name] = launches
+        if n_attn:
+            entry.setdefault("family_shapes", {})[cfg.name] = {
+                k: t[k] for k in ("ms_cap0", "plain_ms_cap0",
+                                  "library_ms_cap0", "bound_ms", "nsplit",
+                                  "shape")}
+    del flush
+    record["families_s"] = time.perf_counter() - t_phase
+    log(f"phase 6b: {record['families_s']:.1f} s")
+
+
 # ------------------------------------------------------------------ main --
 
 def main() -> int:
@@ -2733,9 +2958,9 @@ def main() -> int:
     # 3b. the serving path: smoke configs on the card against the CPU
     t0 = time.perf_counter()
     worst = phase_serve_parity(args.seed, dev)
-    log(f"phase 3b: gemma2-9b and yi-9b smoke (fp32) serve alike on cuda "
-        f"and cpu: prefill logits within {worst:.2g}, 9 greedy tokens equal "
-        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"phase 3b: {', '.join(SERVE_PARITY)} smoke (fp32) serve alike on "
+        f"cuda and cpu: prefill logits within {worst:.2g}, 9 greedy tokens "
+        f"equal ({time.perf_counter() - t0:.1f} s)")
 
     # 4, 2b, 5: the BFS paths at full size (their tensors are freed on
     # return, before the ranks and the serving path need the card's memory)
@@ -2765,6 +2990,11 @@ def main() -> int:
 
     # 6. the serving path at full width
     entries.append(serve_phase(args, dev, record, dec_err))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6b. the moe, ssm and hybrid families at full width
+    family_phase(args, dev, record, entries[-1])
     record["total_s"] = time.perf_counter() - t_start
     log(f"total {record['total_s']:.1f} s")
     if args.out:

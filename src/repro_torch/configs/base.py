@@ -2,8 +2,9 @@
 `configs/base.py`, field for field).
 
 `ARCHS` lists every architecture the JAX package registers; the port has
-configs for the dense ones its serving path runs (`PORTED`). Asking for
-another raises `KeyError` naming `ROADMAP.md`, where its family is queued.
+configs for those its serving path runs (`PORTED`: the dense, moe, ssm and
+hybrid families). Asking for another raises `KeyError` naming
+`ROADMAP.md`, where its family is queued.
 """
 from __future__ import annotations
 
@@ -74,7 +75,8 @@ ARCHS = (
     "mamba2_2_7b", "qwen3_moe_235b_a22b", "llama4_maverick_400b_a17b",
     "hymba_1_5b", "seamless_m4t_medium",
 )
-PORTED = ("stablelm_3b", "yi_9b", "gemma2_9b")
+PORTED = ("stablelm_3b", "yi_9b", "yi_34b", "gemma2_9b", "mamba2_2_7b",
+          "qwen3_moe_235b_a22b", "llama4_maverick_400b_a17b", "hymba_1_5b")
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 

@@ -7,8 +7,10 @@ taken apart in int64 and only stored as uint32.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
 
 def num_words(num_vertices: int) -> int:
     return (num_vertices + 31) // 32
@@ -66,3 +68,11 @@ def compact(flags: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
                                         device=flags.device))
     queue[v] = v
     return queue[:v], n.to(torch.int32)
+
+
+def to_numpy_indices(flags) -> np.ndarray:
+    """The flagged vertex ids of a flag array (numpy, or a tensor on any
+    device), as a numpy int64 array."""
+    if isinstance(flags, torch.Tensor):
+        flags = flags.cpu().numpy()
+    return np.flatnonzero(np.asarray(flags))

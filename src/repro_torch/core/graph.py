@@ -149,3 +149,48 @@ def uniform_random(num_vertices: int, num_edges: int, seed: int = 0,
     src = rng.integers(0, num_vertices, num_edges, dtype=np.int64)
     dst = rng.integers(0, num_vertices, num_edges, dtype=np.int64)
     return from_edges(src, dst, num_vertices, sort_by_degree=sort_by_degree)
+
+
+# Scaled-down stand-ins for the paper's real-world workloads (Table 1 / §4):
+# published V/E ratios preserved, |V| scaled by ~256x. Twitter is strongly
+# scale-free (RMAT); Wikipedia/LiveJournal less so (milder RMAT parameters).
+REAL_WORLD_STANDINS = {
+    # name: (generator, kwargs)  — V, E ratios from the paper §4 Workloads.
+    "twitter_x256": ("rmat", dict(scale=17, edgefactor=18, a=0.57, b=0.19, c=0.19)),
+    "wikipedia_x256": ("rmat", dict(scale=17, edgefactor=11, a=0.50, b=0.22, c=0.22)),
+    "livejournal_x256": ("rmat", dict(scale=14, edgefactor=17, a=0.48, b=0.23, c=0.23)),
+}
+
+
+def real_world_standin(name: str, seed: int = 0) -> Graph:
+    kind, kw = REAL_WORLD_STANDINS[name]
+    if kind != "rmat":
+        raise ValueError(f"stand-in {name!r}: unknown generator {kind!r}")
+    return rmat(seed=seed, **kw)
+
+
+def relabel(g: Graph, perm_new_to_old: np.ndarray,
+            sort_by_degree: bool = True) -> Graph:
+    """Apply a vertex permutation: new vertex i is old vertex perm[i].
+
+    This is the paper's local-ID permutation (§3.4): partitioning emits a
+    permutation placing each partition's vertices contiguously; the CSR is
+    rebuilt in the new id space.
+    """
+    v = g.num_vertices
+    inv = np.empty(v, dtype=np.int64)
+    inv[perm_new_to_old] = np.arange(v)
+    new_degrees = g.degrees[perm_new_to_old]
+    new_indptr = np.zeros(v + 1, dtype=np.int64)
+    np.cumsum(new_degrees, out=new_indptr[1:])
+    # Vectorized row gather: for each new edge slot, locate (new_row,
+    # offset) and read the old row's neighbour, remapped.
+    old_starts = g.indptr[perm_new_to_old]
+    row_of_edge = np.repeat(np.arange(v, dtype=np.int64), new_degrees)
+    offset = np.arange(len(g.indices), dtype=np.int64) - new_indptr[row_of_edge]
+    new_indices = inv[g.indices[old_starts[row_of_edge] + offset]].astype(np.int32)
+    out = Graph(v, new_indptr, new_indices, new_degrees.astype(np.int32))
+    if sort_by_degree:
+        out = sort_adjacency_by_degree(out)
+    out.validate()
+    return out

@@ -4,7 +4,7 @@ Both packages can then compute on identical inputs: the graph, its ELL
 tiles, a mid-search `BatchState` or `BFSState` or one rank's partitioned
 stepper state (the BFS system has no
 weights; the graph and the search state take their place), and the LLM
-serving path's weights and KV caches. Only numpy crosses over; this
+serving path's weights and caches (KV, SSM state and conv tail). Only numpy crosses over; this
 module imports nothing of the JAX package, and loads the LLM modules only
 when weights or caches are carried (the BFS side never needs them).
 """
@@ -88,19 +88,29 @@ def _as(arr, dtype, device) -> torch.Tensor:
         device=device, dtype=dtype)
 
 
+def _stack_entry(cfg, tree: dict, i: int):
+    """The JAX tree's stack and index holding the port's layer i: under
+    `alt_dense_moe` dense layer 2j is entry j of `layers_dense`, MoE layer
+    2j+1 entry j of `layers_moe`; else entry i of `layers`."""
+    if cfg.family == "moe" and cfg.alt_dense_moe:
+        return tree["layers_dense" if i % 2 == 0 else "layers_moe"], i // 2
+    return tree["layers"], i
+
+
 def params_from_arrays(cfg, tree: dict, device=None):
     """The port's `models.model.Model` from the JAX package's param pytree
-    as nested dicts of numpy arrays: `embed.table`, `final_norm`, and
-    `layers.*` stacked on a leading L axis (as `init_params` builds them),
-    cast to the config's dtype."""
-    from repro_torch.models import layers as L
+    as nested dicts of numpy arrays: `embed.table`, `final_norm`, and the
+    layers stacked on a leading L axis (as `init_params` builds them:
+    `layers`, or `layers_dense` and `layers_moe`; the MoE experts on a
+    second, E, axis). Each weight takes the dtype the port's module gives
+    it: the config's, but fp32 for the MoE router and the SSM's `a_log`,
+    `d_skip` and `dt_bias`, as in the JAX package."""
     from repro_torch.models import model as MODEL
     model = MODEL.Model(cfg, device=device)
-    dt = L.dtype_of(cfg)
     for name, p in model.named_parameters():
         parts = name.split(".")
         if parts[0] == "layers":
-            node, index = tree["layers"], int(parts[1])
+            node, index = _stack_entry(cfg, tree, int(parts[1]))
             parts = parts[2:]
         else:
             node, index = tree, None
@@ -110,13 +120,16 @@ def params_from_arrays(cfg, tree: dict, device=None):
         if tuple(np.shape(arr)) != tuple(p.shape):
             raise ValueError(f"{name}: shape {np.shape(arr)}, the port "
                              f"wants {tuple(p.shape)}")
-        p.copy_(_as(arr, dt, device))
+        p.copy_(_as(arr, p.dtype, device))
     return model
 
 
 def cache_from_arrays(cfg, tree: dict, device=None) -> dict:
-    """A KV cache dict (`k`/`v`, or `k_local`/`v_local`/`k_global`/
-    `v_global`) from numpy arrays, cast to the config's dtype: the JAX
-    package's prefill or decode cache, to decode on from it."""
+    """A cache dict (`k`/`v`; `k_local`/`v_local`/`k_global`/`v_global`;
+    `k_dense`/`v_dense`/`k_moe`/`v_moe`; `state`/`conv`, with `k`/`v` for
+    the hybrid family) from numpy arrays: the JAX package's prefill or
+    decode cache, to decode on from it. Each key takes the config's dtype,
+    but the SSM `state` stays fp32, as in the JAX package."""
     from repro_torch.models import layers as L
-    return {k: _as(v, L.dtype_of(cfg), device) for k, v in tree.items()}
+    return {k: _as(v, torch.float32 if k == "state" else L.dtype_of(cfg),
+                   device) for k, v in tree.items()}

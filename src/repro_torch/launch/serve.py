@@ -3,7 +3,11 @@
     python -m repro_torch.launch.serve --arch gemma2-9b [--smoke]
         [--batch 4] [--prompt-len 32] [--gen 16] [--seed 0] [--device cpu]
 
-The weights are random, drawn from --seed; so are the prompt's token ids.
+Every family the port runs (`configs.base.PORTED`: dense, moe, ssm,
+hybrid) goes through the same prefill and greedy decode loop; --arch takes
+the config module's name with `-` or `_` (`qwen3-moe-235b-a22b`,
+`mamba2-2-7b`). The weights are random, drawn from --seed; so are the
+prompt's token ids.
 It runs on the GPU unless --device cpu is given (then the plain PyTorch
 version of the decode kernel runs), and raises where CUDA is missing.
 `serve` is the same run as a function that returns its timings.

@@ -1,1 +1,2 @@
-"""The dense LLM family of the serving path: layers, model, decode."""
+"""The LLM serving path's models: layers, the dense, moe, ssm and hybrid
+families (`model`, `moe`, `mamba2`), decode."""

@@ -1,20 +1,25 @@
-"""Serving path of the dense family: KV caches, prefill, one-token decode.
+"""Serving path: KV and SSM caches, prefill, one-token decode, for the
+dense, moe, ssm and hybrid families.
 
-The JAX package's `models/decode.py` for its dense branches. Cache
-geometry (leading axis = layer):
-  dense:   k, v                  [L,   B, S,  K, h]
-  gemma2:  k/v_local (ring)      [L/2, B, Wc, K, h] (Wc = min(S, window))
-           + k/v_global          [L/2, B, S,  K, h]
+The JAX package's `models/decode.py` for those families. Cache geometry
+(leading axis = layer):
+  dense, moe:  k, v                  [L,   B, S,  K, h]
+  gemma2:      k/v_local (ring)      [L/2, B, Wc, K, h] (Wc = min(S, window))
+               + k/v_global          [L/2, B, S,  K, h]
+  llama4:      k/v_dense + k/v_moe   [L/2, B, S,  K, h] (`alt_dense_moe`)
+  ssm:         state (fp32)          [L,   B, H,  P, N]
+               + conv tail           [L,   B, W-1, ch]
+  hybrid:      ring k, v             [L,   B, Wc, K, h] + state + conv
 
 Ring buffers: slot = position % Wc; RoPE is applied at write time with the
 absolute position, so storage order is irrelevant to attention. Global
 layers write at min(position, S - 1).
 
 The JAX package's caches are immutable and every step returns new ones.
-Here `decode_step` writes the new token's k and v into the caches IN PLACE
-(`index_put_` into the preallocated tensors, no copy of the gigabytes of a
-full-width cache per step) and returns the same dict for API parity:
-clone a cache before stepping to keep it.
+Here `decode_step` writes each layer's new k and v, SSM state and conv
+tail into the caches IN PLACE (no copy of the gigabytes of a full-width
+cache per step) and returns the same dict for API parity: clone a cache
+before stepping to keep it.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.models import model as MODEL
 
 Cache = dict
@@ -38,17 +44,35 @@ def init_cache(cfg: ModelConfig, batch: int, ctx_len: int, *,
     """Zero cache sized for a `ctx_len` context."""
     MODEL.check_ported(cfg)
     dt = L.dtype_of(cfg)
+    lyr = cfg.n_layers
+    wc = _window_cache_len(cfg, ctx_len)
 
     def kv(n_l, s):
         shape = (n_l, batch, s, cfg.n_kv, cfg.head_dim)
         return (torch.zeros(shape, dtype=dt, device=device),
                 torch.zeros(shape, dtype=dt, device=device))
 
+    def ssm():
+        di, h, p, n, ch = M._dims(cfg)
+        return {"state": torch.zeros((lyr, batch, h, p, n),
+                                     dtype=torch.float32, device=device),
+                "conv": torch.zeros((lyr, batch, cfg.conv_width - 1, ch),
+                                    dtype=dt, device=device)}
+
+    if cfg.family == "ssm":
+        return ssm()
+    if cfg.family == "hybrid":
+        k, v = kv(lyr, wc)
+        return {"k": k, "v": v, **ssm()}
     if cfg.alt_local_global:
-        kl, vl = kv(cfg.n_layers // 2, _window_cache_len(cfg, ctx_len))
-        kg, vg = kv(cfg.n_layers // 2, ctx_len)
+        kl, vl = kv(lyr // 2, wc)
+        kg, vg = kv(lyr // 2, ctx_len)
         return {"k_local": kl, "v_local": vl, "k_global": kg, "v_global": vg}
-    k, v = kv(cfg.n_layers, ctx_len)
+    if cfg.family == "moe" and cfg.alt_dense_moe:
+        kd, vd = kv(lyr // 2, ctx_len)
+        km, vm = kv(lyr // 2, ctx_len)
+        return {"k_dense": kd, "v_dense": vd, "k_moe": km, "v_moe": vm}
+    k, v = kv(lyr, ctx_len)
     return {"k": k, "v": v}
 
 
@@ -75,21 +99,36 @@ def _attn_decode(cfg: ModelConfig, attn: L.Attention, x, positions, ck, cv,
 
 def _dense_decode_layer(cfg: ModelConfig, lp: MODEL.DenseLayer, x, positions,
                         ck, cv, *, window: int):
+    """A dense or MoE layer's step (their FFN is `lp.ffn`)."""
     h = L.rms_norm(x, lp.ln1, cfg.norm_eps)
     a, ck, cv = _attn_decode(cfg, lp.attn, h, positions, ck, cv,
                              window=window)
     x = x + a
     h = L.rms_norm(x, lp.ln2, cfg.norm_eps)
-    return x + lp.mlp(h), ck, cv
+    return x + lp.ffn(h, cfg), ck, cv
+
+
+def _ssm_decode(cfg: ModelConfig, ssm: M.SSM, h, cache: Cache, i: int):
+    """Layer i's recurrent update of the normed input h [B,1,D], its state
+    and conv tail written back into the cache in place: y [B,1,D]."""
+    y, nc = M.ssm_decode_step(
+        ssm, h, {"state": cache["state"][i], "conv": cache["conv"][i]}, cfg)
+    cache["state"][i].copy_(nc["state"])
+    cache["conv"][i].copy_(nc["conv"])
+    return y
 
 
 def _layer_caches(cfg: ModelConfig, cache: Cache, i: int):
-    """Layer i's (k, v) cache views: local layer 2j and global layer 2j+1
-    take entry j of their stacks under `alt_local_global`."""
+    """Layer i's (k, v) cache views: under `alt_local_global` local layer
+    2j and global layer 2j+1, under `alt_dense_moe` dense layer 2j and MoE
+    layer 2j+1, take entry j of their stacks."""
     if cfg.alt_local_global:
         side = "local" if i % 2 == 0 else "global"
-        return cache[f"k_{side}"][i // 2], cache[f"v_{side}"][i // 2]
-    return cache["k"][i], cache["v"][i]
+    elif cfg.family == "moe" and cfg.alt_dense_moe:
+        side = MODEL.layer_kind(cfg, i)
+    else:
+        return cache["k"][i], cache["v"][i]
+    return cache[f"k_{side}"][i // 2], cache[f"v_{side}"][i // 2]
 
 
 def decode_step(cfg: ModelConfig, params: MODEL.Model, cache: Cache, tokens,
@@ -99,9 +138,22 @@ def decode_step(cfg: ModelConfig, params: MODEL.Model, cache: Cache, tokens,
     MODEL.check_ported(cfg)
     x = params.embed.embed(tokens)
     for i, lp in enumerate(params.layers):
+        kind = MODEL.layer_kind(cfg, i)
+        if kind == "ssm":
+            h = L.rms_norm(x, lp.ln1, cfg.norm_eps)
+            x = x + _ssm_decode(cfg, lp.ssm, h, cache, i)
+            continue
         ck, cv = _layer_caches(cfg, cache, i)
-        x, _, _ = _dense_decode_layer(cfg, lp, x, positions, ck, cv,
-                                      window=MODEL.layer_window(cfg, i))
+        if kind == "hybrid":
+            h = L.rms_norm(x, lp.ln1, cfg.norm_eps)
+            a, _, _ = _attn_decode(cfg, lp.attn, h, positions, ck, cv,
+                                   window=cfg.sliding_window)
+            y = _ssm_decode(cfg, lp.ssm, h, cache, i)
+            x = x + 0.5 * (a + y)
+            x = x + lp.mlp(L.rms_norm(x, lp.ln2, cfg.norm_eps))
+        else:
+            x, _, _ = _dense_decode_layer(cfg, lp, x, positions, ck, cv,
+                                          window=MODEL.layer_window(cfg, i))
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     return params.embed.unembed(x, cfg)[:, 0], cache
 
@@ -134,8 +186,19 @@ def prefill(cfg: ModelConfig, params: MODEL.Model, inputs: dict,
     """
     hidden, caches = MODEL.forward_hidden(cfg, params, inputs)
     logits = params.embed.unembed(hidden[:, -1:], cfg)
-    if cfg.alt_local_global:
-        wc = _window_cache_len(cfg, ctx_len)
+    wc = _window_cache_len(cfg, ctx_len)
+    if cfg.family == "ssm":
+        state, conv = caches
+        cache = {"state": state, "conv": conv}
+    elif cfg.family == "hybrid":
+        (k, v), (state, conv) = caches
+        cache = {"k": _ring_pack(k, wc), "v": _ring_pack(v, wc),
+                 "state": state, "conv": conv}
+    elif cfg.family == "moe" and cfg.alt_dense_moe:
+        (kd, vd), (km, vm) = caches
+        cache = {"k_dense": _fit(kd, ctx_len), "v_dense": _fit(vd, ctx_len),
+                 "k_moe": _fit(km, ctx_len), "v_moe": _fit(vm, ctx_len)}
+    elif cfg.alt_local_global:
         (kl, vl), (kg, vg) = caches
         cache = {"k_local": _ring_pack(kl, wc), "v_local": _ring_pack(vl, wc),
                  "k_global": _fit(kg, ctx_len), "v_global": _fit(vg, ctx_len)}

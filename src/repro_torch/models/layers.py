@@ -145,6 +145,20 @@ def weight(shape, std: float, dtype, device=None, generator=None):
     return nn.Parameter(t, requires_grad=False)
 
 
+def stacked_weight(n: int, shape, std: float, dtype, device=None,
+                   generator=None):
+    """`n` frozen weights of `shape` stacked on a leading axis ([n, *shape],
+    the MoE expert stacks), each drawn as `weight` draws it, one at a time:
+    the fp32 temporary is one entry, not the stack (llama4's [128, 5120,
+    8192] stacks would need 21.5 GB of it)."""
+    t = torch.empty((n, *shape), dtype=dtype, device=device)
+    if generator is not None:
+        for i in range(n):
+            t[i] = torch.randn(shape, generator=generator,
+                               dtype=torch.float32, device=device).mul_(std)
+    return nn.Parameter(t, requires_grad=False)
+
+
 def zeros(shape, dtype, device=None):
     """A frozen zero weight (the norm scales, applied as 1 + scale)."""
     return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),

@@ -188,3 +188,18 @@ def test_fused_plan_covers_every_word(b, v, sms, resident):
         > (p["tiles"] - 1) * p["tile_words"]
     assert 1 <= p["blocks"] <= min(p["tiles"], tff.MAX_BLOCKS)
     assert p["blocks"] <= -(-(sms * resident) // p["groups"])
+
+
+@pytest.mark.parametrize("v", [0, 1, 37, 4096])
+def test_to_numpy_indices_matches_reference(v):
+    """numpy flags, and tensors of uint8 and bool flags: the same int64 ids
+    as the JAX package's."""
+    from repro.core import frontier as jfrontier
+    from repro_torch.core import frontier as tfrontier
+    flags = (np.random.default_rng(v).random(v) < 0.3).astype(np.uint8)
+    want = jfrontier.to_numpy_indices(flags)
+    for arg in (flags, torch.from_numpy(flags),
+                torch.from_numpy(flags).bool()):
+        got = tfrontier.to_numpy_indices(arg)
+        assert isinstance(got, np.ndarray) and got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)

@@ -77,3 +77,46 @@ def test_port_validate_parents_accepts_and_rejects():
         TR.validate_parents(g, root, bad)
     with pytest.raises(AssertionError):
         TR.validate_parents(g, root, parent, np.where(level > 0, 1, level))
+
+
+@pytest.mark.parametrize("name", sorted(JG.REAL_WORLD_STANDINS))
+def test_real_world_standins_match_reference(name):
+    assert TG.REAL_WORLD_STANDINS[name] == JG.REAL_WORLD_STANDINS[name]
+    _same(TG.real_world_standin(name, seed=1),
+          JG.real_world_standin(name, seed=1))
+
+
+def test_real_world_standins_are_the_reference_set():
+    assert TG.REAL_WORLD_STANDINS == JG.REAL_WORLD_STANDINS
+    with pytest.raises(KeyError):
+        TG.real_world_standin("no_such_graph")
+
+
+@pytest.mark.parametrize("sort", [True, False])
+@pytest.mark.parametrize("seed", [0, 4])
+def test_relabel_matches_reference(seed, sort):
+    """A random permutation, the reversal and the identity; the relabelled
+    graph's edges are the old ones under the map."""
+    g, jg = TG.rmat(8, seed=seed), JG.rmat(8, seed=seed)
+    v = g.num_vertices
+    rng = np.random.default_rng(seed)
+    for perm in (rng.permutation(v), np.arange(v)[::-1].copy(),
+                 np.arange(v)):
+        got = TG.relabel(g, perm, sort_by_degree=sort)
+        _same(got, JG.relabel(jg, perm, sort_by_degree=sort))
+        inv = np.empty(v, np.int64)
+        inv[perm] = np.arange(v)
+        old = {(int(inv[a]), int(inv[b])) for a, b in zip(
+            np.repeat(np.arange(v), g.degrees), g.indices)}
+        new = set(zip(np.repeat(np.arange(v), got.degrees).tolist(),
+                      got.indices.tolist()))
+        assert new == old
+
+
+def test_relabel_of_a_standin_matches_reference():
+    """The partition-order permutation of a stand-in (vertices grouped by
+    id mod 4, as a 4-way partition lays them out)."""
+    g = TG.real_world_standin("livejournal_x256")
+    jg = JG.real_world_standin("livejournal_x256")
+    perm = np.argsort(np.arange(g.num_vertices) % 4, kind="stable")
+    _same(TG.relabel(g, perm), JG.relabel(jg, perm))

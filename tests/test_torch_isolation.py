@@ -1,14 +1,15 @@
 """The port stands alone: no JAX, nothing of the JAX package, no quiet CPU.
 
-* an AST scan of `src/repro_torch/**` and `chip_smoke.py` for imports of
-  `jax` or `repro`;
+* an AST scan of `src/repro_torch/**`, the port's examples and
+  `chip_smoke.py` for imports of `jax` or `repro`;
 * a subprocess that blocks both on `sys.meta_path`, imports the port and
   runs CPU searches on every path (unsplit, hub split, stepper, `bfs()`,
   the gather formulation), `BFSServer` queries (batched and streamed), a
   session that records its plans in an artifact cache and one that
-  pre-warms them, and the LLM serving entry point at smoke size;
-* `Engine(g)`, `BFSServer` and the serving entry point with no device ask
-  for CUDA and raise without it, a partitioned query and `parallel.ranks`
+  pre-warms them, the LLM serving entry point at smoke size for every
+  ported family, and the quickstart example;
+* `Engine(g)`, `BFSServer`, the serving entry point and both BFS examples
+  with no device ask for CUDA and raise without it, a partitioned query and `parallel.ranks`
   too (a rank's device is never a quiet CPU);
 * the BFS path (and the interop module) does not import the LLM serving
   modules (the port's counterpart of the JAX package's DC001 quarantine),
@@ -18,6 +19,7 @@
   searches.
 """
 import ast
+import importlib.util
 import os
 import pathlib
 import subprocess
@@ -32,7 +34,7 @@ from repro_torch.engine import Engine
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py"]
+    sorted((REPO / "examples").glob("*_torch.py")) + [REPO / "chip_smoke.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -55,7 +57,8 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 
 BLOCKED_RUN = r"""
-import importlib.abc, sys
+import importlib.abc, pathlib, sys
+REPO = pathlib.Path(sys.argv[1])
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -99,6 +102,14 @@ from repro_torch.launch import serve
 toks = serve.main(["--arch", "gemma2-9b", "--smoke", "--device", "cpu",
                    "--batch", "2", "--prompt-len", "20", "--gen", "3"])
 assert toks.shape == (2, 3), toks.shape
+for arch in ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
+             "mamba2-2-7b", "hymba-1-5b"):
+    toks = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "20", "--gen", "2"])
+    assert toks.shape == (2, 2), (arch, toks.shape)
+import runpy
+quick = runpy.run_path(str(REPO / "examples" / "quickstart_torch.py"))
+assert quick["main"](tiny=True, device="cpu")
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
                for m in sys.modules)
 """
@@ -107,11 +118,14 @@ assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
 def test_port_runs_with_jax_and_repro_blocked():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO / "src")
-    out = subprocess.run([sys.executable, "-c", BLOCKED_RUN], env=env,
-                         capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", BLOCKED_RUN, str(REPO)],
+                         env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("levels")
-    assert "[serve] gemma2-9b-smoke on cpu" in out.stdout
+    for name in ("gemma2-9b", "qwen3-moe", "llama4-maverick", "mamba2-2.7b",
+                 "hymba-1.5b"):
+        assert f"[serve] {name}-smoke on cpu" in out.stdout, name
+    assert "parent tree VALID" in out.stdout
 
 
 def test_engine_without_device_needs_cuda(monkeypatch):
@@ -202,10 +216,33 @@ def test_sharded_ranks_on_the_card_match_the_cpu(tmp_path):
 def test_serve_without_device_needs_cuda(monkeypatch):
     from repro_torch.launch import serve
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for arch in ("yi-9b", "qwen3-moe-235b-a22b", "mamba2-2-7b"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main(["--arch", arch, "--smoke"])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main(["--arch", arch, "--smoke", "--device", "cuda"])
+
+
+def _example(name):
+    spec = importlib.util.spec_from_file_location(
+        name, REPO / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name,call", [
+    ("quickstart_torch", lambda m: m.main(tiny=True)),
+    ("quickstart_torch", lambda m: m.main(tiny=True, device="cuda")),
+    ("bfs_demo_torch", lambda m: m.main(["--scale", "6"]))])
+def test_examples_without_device_need_cuda(name, call, monkeypatch):
+    """Both BFS examples ask for CUDA unless told the CPU, before any
+    rank joins a group."""
+    mod = _example(name)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("RANK", "0")
     with pytest.raises(RuntimeError, match="CUDA"):
-        serve.main(["--arch", "yi-9b", "--smoke"])
-    with pytest.raises(RuntimeError, match="CUDA"):
-        serve.main(["--arch", "yi-9b", "--smoke", "--device", "cuda"])
+        call(mod)
 
 
 QUARANTINE_RUN = r"""

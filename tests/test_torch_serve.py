@@ -222,16 +222,24 @@ def test_init_params_shapes_and_scales_match_jax():
 
 
 def test_unported_families_and_archs_raise():
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        tbase.get_config("qwen3-moe-235b-a22b")
+    """The encdec family (seamless-m4t) and the vision frontend
+    (internvl2) are not ported: their configs raise naming ROADMAP.md, and
+    a ported config turned into either raises in the model."""
+    for arch in ("seamless-m4t-medium", "internvl2-1b"):
+        for fn in (tbase.get_config, tbase.smoke_config):
+            with pytest.raises(KeyError, match="ROADMAP.md"):
+                fn(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         tbase.smoke_config("no-such-arch")
     assert tbase.get_config("gemma2-9b").n_layers == 42
-    moe = dataclasses.replace(tbase.smoke_config("yi_9b"), family="moe")
-    for fn in (lambda: M.init_params(moe, torch.Generator()),
-               lambda: D.init_cache(moe, 1, 8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fn()
+    yi = tbase.smoke_config("yi_9b")
+    for cfg in (dataclasses.replace(yi, family="encdec", n_enc_layers=2),
+                dataclasses.replace(yi, frontend="vision"),
+                dataclasses.replace(yi, tie_embeddings=False)):
+        for fn in (lambda: M.init_params(cfg, torch.Generator()),
+                   lambda: D.init_cache(cfg, 1, 8)):
+            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+                fn()
 
 
 def test_cache_from_arrays_round_trips(run):
