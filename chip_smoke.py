@@ -12,8 +12,10 @@ a nonzero exit; nothing is caught):
    8 and 16 lanes and its lane packer, the push and the fresh entry, the
    packing kernel per lanes_block with the bitmap and without, decode
    attention at the bf16 decode shapes of gemma2-9b, yi-9b, stablelm-3b,
-   qwen3-moe (g 16), llama4-maverick (g 5) and hymba (g 5, h 64, its
-   ring of 1,024 slots)), what
+   qwen3-moe (g 16), llama4-maverick (g 5), hymba (g 5, h 64, its
+   ring of 1,024 slots), seamless-m4t-medium (g 1, h 64: its self-
+   attention over the 4,232-position context and its cross-attention over
+   the 4,200-position encoder memory) and internvl2-1b (g 7, h 64)), what
    `cudaFuncGetAttributes` reports through the sources' attribute entry
    points: the contract model's static shared bytes must equal the
    compiler's (and decode's dynamic bytes the source's Layout), registers
@@ -49,9 +51,12 @@ a nonzero exit; nothing is caught):
    Graph500 mode, heuristics paper and beamer, unsplit and with
    `hub_split=True`; 2 roots through `backend="stepper"`. Parents, levels
    and the per-level rows must be equal. Serving parity (3b): the
-   smoke configs of gemma2-9b, yi-9b, qwen3-moe, llama4-maverick, mamba2
-   and hymba in fp32, prefill and 8 greedy decode steps on the card
-   against the same weights on the CPU: equal tokens, logits within 1e-4.
+   smoke configs of gemma2-9b, yi-9b, qwen3-moe, llama4-maverick, mamba2,
+   hymba, internvl2 and seamless-m4t in fp32, the prompt of
+   `launch.serve.prompt_inputs` (internvl2's bf16 patch embeddings,
+   seamless's tokens and bf16 frame embeddings), prefill and 8 greedy
+   decode steps on the card against the same weights on the CPU: equal
+   tokens, logits within 1e-4.
 4. The paths at full size, through `Engine.bfs` on Graph500 RMAT at
    --scale (generated once): unsplit (8 roots batched, then 4 in Graph500
    mode), hub split (the same), and 2 roots through the stepper (each on
@@ -178,18 +183,22 @@ a nonzero exit; nothing is caught):
    yardstick, and the host's cost of a launcher call; the kernel and SDPA
    at yi-9b's and stablelm-3b's decode shapes too; a profile of one
    decode step.
-6b. The moe, ssm and hybrid families through the same serve run, each at
-   every published width and freed before the next: qwen3-moe-235b-a22b
-   cut to 8 of its 94 layers, llama4-maverick-400b-a17b to one dense/MoE
-   pair, mamba2-2.7b and hymba-1.5b whole. For each: weights, prefill and
-   decode seconds, tokens/s, peak memory; the decode kernel's launches
-   (reset before, read after: its attention layers x 31, none for
-   mamba2) and its captured calls at the first and last step on layers 0
-   and 1 against the plain version; for the MoE models the share of top-k
-   assignments the capacity dropped at prefill and at decode (routed
-   again from the captured inputs); a profile of one decode step; the
-   kernel's time at the model's decode shape against its bound, its plain
-   version and one SDPA call.
+6b. The moe, ssm, hybrid and encdec families and the vision frontend
+   through the same serve run, each at every published width and freed
+   before the next: qwen3-moe-235b-a22b cut to 8 of its 94 layers,
+   llama4-maverick-400b-a17b to one dense/MoE pair, mamba2-2.7b,
+   hymba-1.5b, seamless-m4t-medium (12 + 12 layers) and internvl2-1b
+   whole. For each: weights, prefill and decode seconds, tokens/s, peak
+   memory; the decode kernel's launches (reset before, read after: its
+   decode-attention calls a step x 31, none for mamba2, two a decoder
+   layer for seamless: self and cross) and its captured calls at the
+   first and last step, calls 0 and 1 of the step (layers 0 and 1;
+   seamless's decoder layer 0's self and cross calls) against the plain
+   version; for the MoE models the share of top-k assignments the
+   capacity dropped at prefill and at decode (routed again from the
+   captured inputs); a profile of one decode step; the kernel's time at
+   each of the model's decode shapes (seamless: self and cross) against
+   its bound, its plain version and one SDPA call.
 7. One JSON line listing the kernels, then the result line.
 
 `--out FILE` also writes the full record (timings, shapes, profiles) as
@@ -255,16 +264,20 @@ SDPA_TOL = 1e-2
 # decode_32k (B = 128, S = 32,768) to one card.
 SERVE = dict(arch="gemma2-9b", batch=4, prompt_len=4200, gen=32)
 OTHER_DECODE = ("yi-9b", "stablelm-3b")   # decode kernel timed at their shape
-# Phase 6b: the moe, ssm and hybrid families through the same serve run,
-# at every published width, (arch, depth cut): qwen3-moe's 94 layers
-# (~470 GB in bf16) cut to 8 (~41 GB with the embedding), llama4's 48 to
-# one dense/MoE pair (its MoE layer alone ~32 GB); mamba2 and hymba whole.
+# Phase 6b: the moe, ssm, hybrid and encdec families and the vision
+# frontend through the same serve run, at every published width, (arch,
+# depth cut): qwen3-moe's 94 layers (~470 GB in bf16) cut to 8 (~41 GB
+# with the embedding), llama4's 48 to one dense/MoE pair (its MoE layer
+# alone ~32 GB); mamba2, hymba, seamless-m4t (~1.4 GB) and internvl2
+# (~1.0 GB) whole.
 FAMILY_SERVE = (("qwen3-moe-235b-a22b", dict(n_layers=8)),
                 ("llama4-maverick-400b-a17b", dict(n_layers=2)),
-                ("mamba2-2-7b", {}), ("hymba-1-5b", {}))
+                ("mamba2-2-7b", {}), ("hymba-1-5b", {}),
+                ("seamless-m4t-medium", {}), ("internvl2-1b", {}))
 # Phase 3b: the smoke configs served alike on the card and the CPU
 SERVE_PARITY = ("gemma2-9b", "yi-9b", "qwen3-moe-235b-a22b",
-                "llama4-maverick-400b-a17b", "mamba2-2-7b", "hymba-1-5b")
+                "llama4-maverick-400b-a17b", "mamba2-2-7b", "hymba-1-5b",
+                "internvl2-1b", "seamless-m4t-medium")
 SDPA_NOTE = ("F.scaled_dot_product_attention (enable_gqa, boolean mask from "
              "cache_len) computes the cap-0 function; no single PyTorch call "
              "computes the soft-capped one the model runs (cap 50)")
@@ -318,18 +331,37 @@ def max_abs_err(a, b) -> int:
 # --------------------------------------------------------------- contracts --
 
 # The decode shapes phase 1c asks the compiler about: batch 4 at the serve
-# run's context (hymba's ring of its window), each model's (g, h) in bf16.
+# run's context (hymba's ring of its window; seamless's cross call the
+# prompt's length), each model's (g, h) in bf16.
 CONTRACT_DECODE = ("gemma2-9b", "yi-9b", "stablelm-3b", "qwen3-moe-235b-a22b",
-                   "llama4-maverick-400b-a17b", "hymba-1-5b")
+                   "llama4-maverick-400b-a17b", "hymba-1-5b",
+                   "seamless-m4t-medium", "internvl2-1b")
 # A per-CTA budget below the 8-lane pull instance's static shared memory:
 # a strict session under it must refuse the cohort plan before any launch.
 TIGHT_SMEM = 16 * 1024
 
 
-def decode_len(cfg) -> int:
+def decode_calls(cfg) -> tuple:
+    """The decode-attention calls a layer of `cfg` makes a step: "self",
+    and under encdec also "cross" (to the encoder's memory)."""
+    return ("self", "cross") if cfg.family == "encdec" else ("self",)
+
+
+def calls_per_step(cfg) -> int:
+    """Decode-attention calls in one decode step: one a layer that attends
+    (none for ssm layers), two an encdec decoder layer."""
+    from repro_torch.models import model as MODEL
+    return sum(0 if MODEL.layer_kind(cfg, i) == "ssm" else
+               len(decode_calls(cfg)) for i in range(cfg.n_layers))
+
+
+def decode_len(cfg, call: str = "self") -> int:
     """The cache length a decode call of `cfg` reads at the serve run's
     context: the whole context, but hymba's ring of `sliding_window`
-    slots."""
+    slots, and for encdec's cross call the encoder memory (the prompt's
+    length)."""
+    if call == "cross":
+        return SERVE["prompt_len"]
     s = SERVE["prompt_len"] + SERVE["gen"]
     return min(s, cfg.sliding_window) if cfg.family == "hybrid" else s
 
@@ -378,11 +410,12 @@ def contract_instances(dev):
         cfg = get_config(arch)
         g, h = cfg.n_heads // cfg.n_kv, cfg.head_dim
         res = decode_attn.resident_blocks(dev, torch.bfloat16, g, h)
-        b, s = SERVE["batch"], decode_len(cfg)
-        nsplit, _ = decode_attn.split_plan(b, cfg.n_kv, s, sms, res)
-        out.append((f"decode {arch} (bf16, g {g}, h {h}, S {s}, {nsplit} "
-                    f"splits)",
-                    KC.decode_instance("bfloat16", g, h, nsplit), res))
+        for call in decode_calls(cfg):
+            b, s = SERVE["batch"], decode_len(cfg, call)
+            nsplit, _ = decode_attn.split_plan(b, cfg.n_kv, s, sms, res)
+            out.append((f"decode {arch}{' cross' if call == 'cross' else ''}"
+                        f" (bf16, g {g}, h {h}, S {s}, {nsplit} splits)",
+                        KC.decode_instance("bfloat16", g, h, nsplit), res))
     return out
 
 
@@ -1309,42 +1342,51 @@ def phase_decode_kernel(rng, dev):
 
 def phase_serve_parity(seed, dev):
     """Smoke configs in fp32 (matmuls in full fp32): the same weights and
-    prompt on the card and on the CPU, prefill and 8 greedy steps."""
+    prompt (`launch.serve.prompt_inputs`: tokens, or the frontend stubs'
+    bf16 embeddings) on the card and on the CPU, prefill and 8 greedy
+    steps."""
     import copy
     import dataclasses
     import torch
     from repro_torch.configs.base import smoke_config
+    from repro_torch.launch.serve import prompt_inputs
     from repro_torch.models import decode as D, model as M
-    from repro_torch.train.serve_step import greedy_generate
+    from repro_torch.train.serve_step import decode_loop
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst = 0.0
+    b, s, steps = 2, 24, 8
     for arch in SERVE_PARITY:
         cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
         cpu = M.init_params(cfg, torch.Generator().manual_seed(seed))
         gpu = copy.deepcopy(cpu).to(dev)
-        prompt = torch.from_numpy(np.random.default_rng(seed).integers(
-            0, cfg.vocab, (2, 24), dtype=np.int32))
-        lc, _ = D.prefill(cfg, cpu, {"tokens": prompt}, 32)
-        lg, _ = D.prefill(cfg, gpu, {"tokens": prompt.to(dev)}, 32)
-        worst = max(worst, float((lg.cpu() - lc).abs().max()))
+        inputs = prompt_inputs(cfg, b, s, seed, "cpu")
+        runs = []
+        for params, device in ((cpu, "cpu"), (gpu, dev)):
+            logits, cache = D.prefill(
+                cfg, params, {k: v.to(device) for k, v in inputs.items()},
+                s + steps + 1)
+            tokens = decode_loop(cfg, params, logits, cache, s, steps)[0]
+            runs.append((logits.cpu(), tokens.cpu()))
+        (lc, tc), (lg, tg) = runs
+        worst = max(worst, float((lg - lc).abs().max()))
         assert worst <= 1e-4, f"{arch}: prefill logits differ by {worst}"
-        tc = greedy_generate(cfg, cpu, prompt, 9, 33)
-        tg = greedy_generate(cfg, gpu, prompt.to(dev), 9, 33)
-        assert torch.equal(tg.cpu(), tc), f"{arch}: greedy tokens differ"
+        assert torch.equal(tg, tc), f"{arch}: greedy tokens differ"
     return worst
 
 
-def install_decode_capture(n_layers, steps):
-    """Wrap `ops.decode_attention`: call c is decode step c // n_layers,
-    layer c % n_layers; the calls of the first and last step on layers 0
-    (local) and 1 (global) are kept with clones of their inputs (the
-    caches change in place) and their outputs. Returns (kept, restore)."""
+def install_decode_capture(n_calls, steps):
+    """Wrap `ops.decode_attention`: call c is decode step c // n_calls,
+    call c % n_calls of the step (its layer, where a layer makes one
+    call); the first and last step's calls 0 and 1 (gemma2's local layer
+    0 and global layer 1; an encdec decoder layer 0's self and cross
+    calls) are kept with clones of their inputs (the caches change in
+    place) and their outputs. Returns (kept, restore)."""
     from repro_torch.kernels import ops
     saved, kept, count = ops.decode_attention, [], [0]
 
     def fn(*args, **kw):
-        step, layer = divmod(count[0], n_layers)
+        step, layer = divmod(count[0], n_calls)
         count[0] += 1
         out = saved(*args, **kw)
         if step in (0, steps - 1) and layer in (0, 1):
@@ -2740,22 +2782,22 @@ def moe_drops(cfg, counts, decode_in):
 
 def family_phase(args, dev, record, entry):
     """Phase 6b: qwen3-moe (8 of 94 layers), llama4-maverick (one dense/MoE
-    pair), mamba2-2.7b and hymba-1.5b at every published width through
-    `launch.serve.serve`, one after another, each freed before the next.
-    For each: the seconds, tokens/s and peak memory, the decode kernel's
-    launches (its attention layers x 31; none for mamba2) and its captured
-    calls against the plain version, the MoE models' dropped share of
-    top-k assignments at prefill and at decode, one decode step under the
-    profiler, and the kernel's time at the model's decode shape against
-    its bound and one SDPA call. Adds the launches and the worst error to
-    the kernels line's decode entry."""
+    pair), mamba2-2.7b, hymba-1.5b, seamless-m4t-medium and internvl2-1b
+    at every published width through `launch.serve.serve`, one after
+    another, each freed before the next. For each: the seconds, tokens/s
+    and peak memory, the decode kernel's launches (its calls a step x 31;
+    none for mamba2, self and cross for seamless) and its captured calls
+    against the plain version, the MoE models' dropped share of top-k
+    assignments at prefill and at decode, one decode step under the
+    profiler, and the kernel's time at each of the model's decode shapes
+    against its bound and one SDPA call. Adds the launches and the worst
+    error to the kernels line's decode entry."""
     import dataclasses
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import decode_attn, ops
     from repro_torch.launch import serve
     from repro_torch.models import decode as D
-    from repro_torch.models import model as MODEL
     b, s0, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
     steps = gen - 1
     flush = torch.empty(1 << 27, dtype=torch.uint8, device=dev)
@@ -2763,8 +2805,7 @@ def family_phase(args, dev, record, entry):
     t_phase = time.perf_counter()
     for arch, cut in FAMILY_SERVE:
         cfg = dataclasses.replace(get_config(arch), **cut)
-        n_attn = sum(MODEL.layer_kind(cfg, i) != "ssm"
-                     for i in range(cfg.n_layers))
+        n_attn = calls_per_step(cfg)
         kept, restore_dec = install_decode_capture(n_attn or 1, steps)
         counts, decode_in, restore_moe = install_moe_capture()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2796,7 +2837,9 @@ def family_phase(args, dev, record, entry):
         rec = fams[cfg.name] = dict(
             arch=arch, family=cfg.family, layers=cfg.n_layers,
             published_layers=get_config(arch).n_layers,
-            attention_layers=n_attn, d_model=cfg.d_model, heads=cfg.n_heads,
+            enc_layers=cfg.n_enc_layers, frontend=cfg.frontend,
+            decode_calls_per_step=n_attn, d_model=cfg.d_model,
+            heads=cfg.n_heads,
             kv_heads=cfg.n_kv, head_dim=cfg.head_dim, d_ff=cfg.d_ff,
             experts=cfg.n_experts, top_k=cfg.top_k, moe_d_ff=cfg.moe_d_ff,
             ssm_heads=cfg.ssm_heads, ssm_state=cfg.ssm_state,
@@ -2813,17 +2856,22 @@ def family_phase(args, dev, record, entry):
             f"{drops['prefill']['capacity']} a call) and "
             f"{drops['decode']['share']:.4f} at decode (capacity "
             f"{drops['decode']['capacity']})")
-        log(f"phase 6b: {cfg.name} ({cfg.family}, {cfg.n_layers} of "
-            f"{rec['published_layers']} layers, {rec['params'] / 1e9:.2f} G "
+        log(f"phase 6b: {cfg.name} ({cfg.family}, "
+            + (f"{cfg.n_enc_layers} encoder + " if cfg.n_enc_layers else "")
+            + f"{cfg.n_layers} of {rec['published_layers']} layers, "
+            + (f"{cfg.frontend} stub, " if cfg.frontend != "none" else "")
+            + f"{rec['params'] / 1e9:.2f} G "
             f"parameters, {cfg.dtype}), batch {b}, prompt {s0}, {gen} greedy "
             f"tokens: weights {run.init_s:.1f} s, prefill "
             f"{run.prefill_s:.3f} s, decode {rec['decode_ms_per_step']:.2f} "
             f"ms/step ({rec['tokens_per_s']:.1f} tokens/s), peak memory "
             f"{peak / 2**30:.2f} GiB; decode_attention launched {launches} = "
             f"{n_attn} x {steps}"
-            + (f", its calls at steps 0 and {steps - 1} on layers 0 and 1 "
-               f"equal the plain version (max |kernel - plain| {err:.3g})"
-               if n_attn else "") + drop_note
+            + (f", its calls at steps 0 and {steps - 1} on "
+               + ("decoder layer 0 (self and cross)"
+                  if cfg.family == "encdec" else "layers 0 and 1")
+               + f" equal the plain version (max |kernel - plain| "
+               f"{err:.3g})" if n_attn else "") + drop_note
             + f"; tokens[0] {run.tokens[0, :8].tolist()}")
 
         # one more decode step (the context's last position), profiled
@@ -2844,9 +2892,10 @@ def family_phase(args, dev, record, entry):
         gc.collect()
         torch.cuda.empty_cache()
 
-        # the decode kernel at this model's shape, cache_len = the cache
-        if n_attn:
-            s = decode_len(cfg)
+        # the decode kernel at each of this model's shapes, cache_len =
+        # the cache
+        for call in decode_calls(cfg) if n_attn else ():
+            s = decode_len(cfg, call)
             g = cfg.n_heads // cfg.n_kv
             q, kc, vc, clen = decode_inputs(
                 np.random.default_rng([args.seed, 6]), dev, torch.bfloat16,
@@ -2861,8 +2910,9 @@ def family_phase(args, dev, record, entry):
                      group_instance=decode_attn.group_instance(g))
             for cap in ("50", "0"):
                 t[f"bound_share_cap{cap}"] = t["bound_ms"] / t[f"ms_cap{cap}"]
-            rec["decode_timing"] = t
-            log(f"phase 6b: decode_attention at {cfg.name}'s shape q "
+            label = cfg.name + (" cross" if call == "cross" else "")
+            rec["decode_timing" + ("_cross" if call == "cross" else "")] = t
+            log(f"phase 6b: decode_attention at {label}'s shape q "
                 f"{list(q.shape)} (g {g} on the GM = {t['group_instance']} "
                 f"instance), caches {list(kc.shape)} bf16, cache_len {s}, "
                 f"{t['nsplit']} splits of {t['split_len']} ({t['blocks']} "
@@ -2872,14 +2922,13 @@ def family_phase(args, dev, record, entry):
                 f"{t['plain_ms_cap0']:.4f} ms; SDPA {t['library_ms_cap0']:.4f}"
                 f" ms; bound {t['bound_ms']:.4f} ms ({nbytes} bytes)")
             del q, kc, vc
-        entry["launches"] += launches
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        entry.setdefault("family_launches", {})[cfg.name] = launches
-        if n_attn:
-            entry.setdefault("family_shapes", {})[cfg.name] = {
+            entry.setdefault("family_shapes", {})[label] = {
                 k: t[k] for k in ("ms_cap0", "plain_ms_cap0",
                                   "library_ms_cap0", "bound_ms", "nsplit",
                                   "shape")}
+        entry["launches"] += launches
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry.setdefault("family_launches", {})[cfg.name] = launches
     del flush
     record["families_s"] = time.perf_counter() - t_phase
     log(f"phase 6b: {record['families_s']:.1f} s")
@@ -2993,7 +3042,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 6b. the moe, ssm and hybrid families at full width
+    # 6b. the moe, ssm, hybrid and encdec families and the vision frontend
+    # at full width
     family_phase(args, dev, record, entries[-1])
     record["total_s"] = time.perf_counter() - t_start
     log(f"total {record['total_s']:.1f} s")

@@ -1,10 +1,9 @@
 """Model configuration dataclass and registry (the JAX package's
 `configs/base.py`, field for field).
 
-`ARCHS` lists every architecture the JAX package registers; the port has
-configs for those its serving path runs (`PORTED`: the dense, moe, ssm and
-hybrid families). Asking for another raises `KeyError` naming
-`ROADMAP.md`, where its family is queued.
+`ARCHS` lists every architecture the JAX package registers, and the port
+has a config for each (the dense, moe, ssm, hybrid and encdec families,
+the vision and audio frontend stubs). An unknown name raises `KeyError`.
 """
 from __future__ import annotations
 
@@ -75,8 +74,6 @@ ARCHS = (
     "mamba2_2_7b", "qwen3_moe_235b_a22b", "llama4_maverick_400b_a17b",
     "hymba_1_5b", "seamless_m4t_medium",
 )
-PORTED = ("stablelm_3b", "yi_9b", "yi_34b", "gemma2_9b", "mamba2_2_7b",
-          "qwen3_moe_235b_a22b", "llama4_maverick_400b_a17b", "hymba_1_5b")
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 
@@ -85,9 +82,6 @@ def _module(name: str):
     key = _ALIASES.get(name, name).replace("-", "_")
     if key not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {ARCHS}")
-    if key not in PORTED:
-        raise KeyError(f"arch {name!r} is not ported to repro_torch yet "
-                       f"(ported: {PORTED}); see ROADMAP.md queue 1")
     return importlib.import_module(f"repro_torch.configs.{key}")
 
 

@@ -88,29 +88,35 @@ def _as(arr, dtype, device) -> torch.Tensor:
         device=device, dtype=dtype)
 
 
-def _stack_entry(cfg, tree: dict, i: int):
-    """The JAX tree's stack and index holding the port's layer i: under
-    `alt_dense_moe` dense layer 2j is entry j of `layers_dense`, MoE layer
-    2j+1 entry j of `layers_moe`; else entry i of `layers`."""
-    if cfg.family == "moe" and cfg.alt_dense_moe:
+def _stack_entry(cfg, tree: dict, stack: str, i: int):
+    """The JAX tree's stack and index holding the port's layer i of
+    `stack` ("layers" or "enc"): under `alt_dense_moe` dense layer 2j is
+    entry j of `layers_dense`, MoE layer 2j+1 entry j of `layers_moe`;
+    under encdec the decoder's layers are `dec`'s; else entry i of the
+    stack of the same name."""
+    if stack == "layers" and cfg.family == "moe" and cfg.alt_dense_moe:
         return tree["layers_dense" if i % 2 == 0 else "layers_moe"], i // 2
-    return tree["layers"], i
+    if stack == "layers" and cfg.family == "encdec":
+        return tree["dec"], i
+    return tree[stack], i
 
 
 def params_from_arrays(cfg, tree: dict, device=None):
     """The port's `models.model.Model` from the JAX package's param pytree
-    as nested dicts of numpy arrays: `embed.table`, `final_norm`, and the
-    layers stacked on a leading L axis (as `init_params` builds them:
-    `layers`, or `layers_dense` and `layers_moe`; the MoE experts on a
-    second, E, axis). Each weight takes the dtype the port's module gives
-    it: the config's, but fp32 for the MoE router and the SSM's `a_log`,
-    `d_skip` and `dt_bias`, as in the JAX package."""
+    as nested dicts of numpy arrays: `embed.table` (and `embed.unembed`
+    when the embeddings are untied), `final_norm`, and the layers stacked
+    on a leading L axis (as `init_params` builds them: `layers`, or
+    `layers_dense` and `layers_moe`, or encdec's `enc` and `dec` with
+    `enc_norm`; the MoE experts on a second, E, axis). Each weight takes
+    the dtype the port's module gives it: the config's, but fp32 for the
+    MoE router and the SSM's `a_log`, `d_skip` and `dt_bias`, as in the
+    JAX package."""
     from repro_torch.models import model as MODEL
     model = MODEL.Model(cfg, device=device)
     for name, p in model.named_parameters():
         parts = name.split(".")
-        if parts[0] == "layers":
-            node, index = _stack_entry(cfg, tree, int(parts[1]))
+        if parts[0] in ("layers", "enc"):
+            node, index = _stack_entry(cfg, tree, parts[0], int(parts[1]))
             parts = parts[2:]
         else:
             node, index = tree, None
@@ -127,7 +133,8 @@ def params_from_arrays(cfg, tree: dict, device=None):
 def cache_from_arrays(cfg, tree: dict, device=None) -> dict:
     """A cache dict (`k`/`v`; `k_local`/`v_local`/`k_global`/`v_global`;
     `k_dense`/`v_dense`/`k_moe`/`v_moe`; `state`/`conv`, with `k`/`v` for
-    the hybrid family) from numpy arrays: the JAX package's prefill or
+    the hybrid family; `k_self`/`v_self`/`k_cross`/`v_cross` for encdec)
+    from numpy arrays: the JAX package's prefill or
     decode cache, to decode on from it. Each key takes the config's dtype,
     but the SSM `state` stays fp32, as in the JAX package."""
     from repro_torch.models import layers as L

@@ -3,11 +3,14 @@
     python -m repro_torch.launch.serve --arch gemma2-9b [--smoke]
         [--batch 4] [--prompt-len 32] [--gen 16] [--seed 0] [--device cpu]
 
-Every family the port runs (`configs.base.PORTED`: dense, moe, ssm,
-hybrid) goes through the same prefill and greedy decode loop; --arch takes
-the config module's name with `-` or `_` (`qwen3-moe-235b-a22b`,
-`mamba2-2-7b`). The weights are random, drawn from --seed; so are the
-prompt's token ids.
+Every architecture of `configs.base.ARCHS` (the dense, moe, ssm, hybrid
+and encdec families) goes through the same prefill and greedy decode loop;
+--arch takes the config module's name with `-` or `_`
+(`qwen3-moe-235b-a22b`, `mamba2-2-7b`, `seamless-m4t-medium`). The
+weights are random, drawn from --seed; so is the prompt (`prompt_inputs`):
+token ids, internvl2's patch embeddings in their place (the vision stub),
+or seamless's token ids and frame embeddings for its encoder (the audio
+stub).
 It runs on the GPU unless --device cpu is given (then the plain PyTorch
 version of the decode kernel runs), and raises where CUDA is missing.
 `serve` is the same run as a function that returns its timings.
@@ -47,6 +50,29 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def prompt_inputs(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
+                  device) -> dict:
+    """The prompt, drawn as the JAX package's `launch/serve.py` draws it
+    from `np.random.default_rng(seed)`, in its order: the token ids int32
+    [B, S] first, always; with a frontend stub (not encdec) bf16
+    `embeds` [B, S, D] in their place; under encdec bf16 `enc_embeds`
+    [B, S, D] beside them. bf16 whatever the model's dtype (a product with
+    fp32 weights computes in fp32)."""
+    rng = np.random.default_rng(seed)
+    shape = (batch, prompt_len)
+    inputs = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, shape, dtype=np.int32)).to(device)}
+
+    def embeds():
+        return torch.from_numpy(rng.standard_normal(
+            (*shape, cfg.d_model))).to(device=device, dtype=torch.bfloat16)
+    if cfg.frontend != "none" and cfg.family != "encdec":
+        inputs = {"embeds": embeds()}
+    if cfg.family == "encdec":
+        inputs["enc_embeds"] = embeds()
+    return inputs
+
+
 def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
           seed: int, device: torch.device) -> ServeRun:
     """Random weights and prompt from `seed`, prefill, then `gen - 1`
@@ -56,13 +82,11 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
         cfg, torch.Generator(device=device).manual_seed(seed), device)
     _sync(device)
     init_s = time.perf_counter() - t0
-    rng = np.random.default_rng(seed)
-    b, s = batch, prompt_len
-    tokens = torch.from_numpy(
-        rng.integers(0, cfg.vocab, (b, s), dtype=np.int32)).to(device)
+    s = prompt_len
+    inputs = prompt_inputs(cfg, batch, s, seed, device)
 
     t0 = time.perf_counter()
-    logits, cache = make_prefill_step(cfg, s + gen)(params, {"tokens": tokens})
+    logits, cache = make_prefill_step(cfg, s + gen)(params, inputs)
     _sync(device)
     prefill_s = time.perf_counter() - t0
 

@@ -1,2 +1,2 @@
-"""The LLM serving path's models: layers, the dense, moe, ssm and hybrid
-families (`model`, `moe`, `mamba2`), decode."""
+"""The LLM serving path's models: layers, the dense, moe, ssm, hybrid and
+encdec families (`model`, `moe`, `mamba2`), decode."""

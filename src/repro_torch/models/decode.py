@@ -1,8 +1,8 @@
-"""Serving path: KV and SSM caches, prefill, one-token decode, for the
-dense, moe, ssm and hybrid families.
+"""Serving path: KV and SSM caches, prefill, one-token decode, for every
+family.
 
-The JAX package's `models/decode.py` for those families. Cache geometry
-(leading axis = layer):
+The JAX package's `models/decode.py`. Cache geometry (leading axis =
+layer):
   dense, moe:  k, v                  [L,   B, S,  K, h]
   gemma2:      k/v_local (ring)      [L/2, B, Wc, K, h] (Wc = min(S, window))
                + k/v_global          [L/2, B, S,  K, h]
@@ -10,10 +10,18 @@ The JAX package's `models/decode.py` for those families. Cache geometry
   ssm:         state (fp32)          [L,   B, H,  P, N]
                + conv tail           [L,   B, W-1, ch]
   hybrid:      ring k, v             [L,   B, Wc, K, h] + state + conv
+  encdec:      k/v_self              [L,   B, S,  K, h]
+               + frozen k/v_cross    [L,   B, S_enc, K, h]
 
 Ring buffers: slot = position % Wc; RoPE is applied at write time with the
 absolute position, so storage order is irrelevant to attention. Global
 layers write at min(position, S - 1).
+
+The encdec cross-attention query is RoPE'd at prefill (the full-sequence
+attention RoPEs every query) but not in `decode_step`, as in the JAX
+package; the port keeps both, since it is held against the JAX package's
+`decode_step`, not against its forward. The cross caches (the encoder
+memory's keys and values, never RoPE'd) are read, never written.
 
 The JAX package's caches are immutable and every step returns new ones.
 Here `decode_step` writes each layer's new k and v, SSM state and conv
@@ -39,10 +47,10 @@ def _window_cache_len(cfg: ModelConfig, ctx_len: int) -> int:
     return min(ctx_len, w) if w else ctx_len
 
 
-def init_cache(cfg: ModelConfig, batch: int, ctx_len: int, *,
-               device=None) -> Cache:
-    """Zero cache sized for a `ctx_len` context."""
-    MODEL.check_ported(cfg)
+def init_cache(cfg: ModelConfig, batch: int, ctx_len: int,
+               enc_len: int = 0, *, device=None) -> Cache:
+    """Zero cache sized for a `ctx_len` context (and, under encdec, an
+    encoder memory of `enc_len` positions, `ctx_len` when 0)."""
     dt = L.dtype_of(cfg)
     lyr = cfg.n_layers
     wc = _window_cache_len(cfg, ctx_len)
@@ -64,6 +72,10 @@ def init_cache(cfg: ModelConfig, batch: int, ctx_len: int, *,
     if cfg.family == "hybrid":
         k, v = kv(lyr, wc)
         return {"k": k, "v": v, **ssm()}
+    if cfg.family == "encdec":
+        ks, vs = kv(lyr, ctx_len)
+        kc, vc = kv(lyr, enc_len or ctx_len)
+        return {"k_self": ks, "v_self": vs, "k_cross": kc, "v_cross": vc}
     if cfg.alt_local_global:
         kl, vl = kv(lyr // 2, wc)
         kg, vg = kv(lyr // 2, ctx_len)
@@ -118,14 +130,27 @@ def _ssm_decode(cfg: ModelConfig, ssm: M.SSM, h, cache: Cache, i: int):
     return y
 
 
+def _cross_decode(cfg: ModelConfig, xattn: L.Attention, x, kx, vx):
+    """Cross-attention of x [B,1,D] to the encoder memory's frozen keys and
+    values kx/vx [B, S_enc, K, h], every position valid; the query is not
+    RoPE'd (the JAX package's `decode_step`), and no soft cap."""
+    q = L.project(x, xattn.wq)
+    enc_len = torch.full((x.shape[0],), kx.shape[1], dtype=torch.int32,
+                         device=x.device)
+    return xattn.out(L.decode_attention(q, kx, vx, enc_len, logit_cap=0.0))
+
+
 def _layer_caches(cfg: ModelConfig, cache: Cache, i: int):
     """Layer i's (k, v) cache views: under `alt_local_global` local layer
     2j and global layer 2j+1, under `alt_dense_moe` dense layer 2j and MoE
-    layer 2j+1, take entry j of their stacks."""
+    layer 2j+1, take entry j of their stacks; an encdec decoder layer its
+    self-attention's."""
     if cfg.alt_local_global:
         side = "local" if i % 2 == 0 else "global"
     elif cfg.family == "moe" and cfg.alt_dense_moe:
         side = MODEL.layer_kind(cfg, i)
+    elif cfg.family == "encdec":
+        return cache["k_self"][i], cache["v_self"][i]
     else:
         return cache["k"][i], cache["v"][i]
     return cache[f"k_{side}"][i // 2], cache[f"v_{side}"][i // 2]
@@ -135,7 +160,6 @@ def decode_step(cfg: ModelConfig, params: MODEL.Model, cache: Cache, tokens,
                 positions):
     """One decode step. tokens [B,1] int32, positions [B] int32 ->
     (logits [B,V] fp32, cache), the cache updated in place."""
-    MODEL.check_ported(cfg)
     x = params.embed.embed(tokens)
     for i, lp in enumerate(params.layers):
         kind = MODEL.layer_kind(cfg, i)
@@ -151,11 +175,20 @@ def decode_step(cfg: ModelConfig, params: MODEL.Model, cache: Cache, tokens,
             y = _ssm_decode(cfg, lp.ssm, h, cache, i)
             x = x + 0.5 * (a + y)
             x = x + lp.mlp(L.rms_norm(x, lp.ln2, cfg.norm_eps))
+        elif kind == "encdec":
+            h = L.rms_norm(x, lp.ln1, cfg.norm_eps)
+            a, _, _ = _attn_decode(cfg, lp.attn, h, positions, ck, cv,
+                                   window=0)
+            x = x + a
+            h = L.rms_norm(x, lp.lnx, cfg.norm_eps)
+            x = x + _cross_decode(cfg, lp.xattn, h, cache["k_cross"][i],
+                                  cache["v_cross"][i])
+            x = x + lp.mlp(L.rms_norm(x, lp.ln2, cfg.norm_eps))
         else:
             x, _, _ = _dense_decode_layer(cfg, lp, x, positions, ck, cv,
                                           window=MODEL.layer_window(cfg, i))
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
-    return params.embed.unembed(x, cfg)[:, 0], cache
+    return params.embed.logits(x, cfg)[:, 0], cache
 
 
 # ----------------------------------------------------------------- prefill --
@@ -181,11 +214,13 @@ def prefill(cfg: ModelConfig, params: MODEL.Model, inputs: dict,
             ctx_len: int):
     """Run the full prompt; returns (last-token logits [B,V], cache).
 
-    `ctx_len` sizes the cache (>= prompt length) for subsequent decode.
+    `inputs` as `model.forward_hidden` takes them: tokens, or the frontend
+    stub's embeds; encdec also enc_embeds, whose keys and values become
+    the cross caches as computed. `ctx_len` sizes the cache (>= prompt length) for subsequent decode.
     Only the last position is unembedded (never materializes [B, S, V]).
     """
     hidden, caches = MODEL.forward_hidden(cfg, params, inputs)
-    logits = params.embed.unembed(hidden[:, -1:], cfg)
+    logits = params.embed.logits(hidden[:, -1:], cfg)
     wc = _window_cache_len(cfg, ctx_len)
     if cfg.family == "ssm":
         state, conv = caches
@@ -194,6 +229,10 @@ def prefill(cfg: ModelConfig, params: MODEL.Model, inputs: dict,
         (k, v), (state, conv) = caches
         cache = {"k": _ring_pack(k, wc), "v": _ring_pack(v, wc),
                  "state": state, "conv": conv}
+    elif cfg.family == "encdec":
+        (k, v), (kc, vc) = caches
+        cache = {"k_self": _fit(k, ctx_len), "v_self": _fit(v, ctx_len),
+                 "k_cross": kc, "v_cross": vc}
     elif cfg.family == "moe" and cfg.alt_dense_moe:
         (kd, vd), (km, vm) = caches
         cache = {"k_dense": _fit(kd, ctx_len), "v_dense": _fit(vd, ctx_len),

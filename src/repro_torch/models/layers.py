@@ -5,10 +5,12 @@ The JAX package's `models/layers.py` in PyTorch. Weights live in
 and scales; the functions keep its cast points, so that bf16 rounds where
 it does there: `rms_norm` and `rope` compute in fp32 and cast back, the
 attention scores and `p @ v` are fp32, and the unembedding is cast to fp32
-before the final soft cap. Prefill attention is plain chunked PyTorch with
-running (max, sum, acc) over key blocks (`F.scaled_dot_product_attention`
-has no soft cap); decode attention is the hand-written kernel behind
-`kernels.ops.decode_attention`.
+before the final soft cap. A product of an activation and a weight of
+another dtype (the frontend stubs' bf16 embeddings entering an fp32 model)
+computes in the weight's dtype, as `jnp.einsum` promotes them. Prefill
+attention is plain chunked PyTorch with running (max, sum, acc) over key
+blocks (`F.scaled_dot_product_attention` has no soft cap); decode attention
+is the hand-written kernel behind `kernels.ops.decode_attention`.
 
 Shape glossary: B batch, S seq, D d_model, H q heads, K kv heads, h head dim,
 F d_ff, V vocab.
@@ -165,6 +167,11 @@ def zeros(shape, dtype, device=None):
                         requires_grad=False)
 
 
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[B, S, D] x [D, N, h] -> [B, S, N, h], in the weight's dtype."""
+    return torch.einsum("bsd,dnh->bsnh", x.to(w.dtype), w)
+
+
 class Attention(nn.Module):
     """wq [D, H, h], wk/wv [D, K, h], wo [H, h, D]."""
 
@@ -178,22 +185,30 @@ class Attention(nn.Module):
         self.wo = weight((hq, hd, d), (hq * hd) ** -0.5, dtype, device,
                          generator)
 
+    def kv(self, x: torch.Tensor):
+        """[B, S, D] -> k and v [B, S, K, h] (no RoPE)."""
+        return project(x, self.wk), project(x, self.wv)
+
     def qkv(self, x: torch.Tensor):
         """[B, S, D] -> q [B, S, H, h], k and v [B, S, K, h] (no RoPE)."""
-        return (torch.einsum("bsd,dnh->bsnh", x, self.wq),
-                torch.einsum("bsd,dnh->bsnh", x, self.wk),
-                torch.einsum("bsd,dnh->bsnh", x, self.wv))
+        return (project(x, self.wq), *self.kv(x))
 
     def out(self, o: torch.Tensor) -> torch.Tensor:
-        return torch.einsum("bsnh,nhd->bsd", o, self.wo)
+        return torch.einsum("bsnh,nhd->bsd", o.to(self.wo.dtype), self.wo)
 
-    def forward(self, x, positions, cfg: ModelConfig, *, window: int = 0):
-        """Full-sequence causal attention: (out [B, S, D], (k, v) for
-        caching)."""
-        q, k, v = self.qkv(x)
-        k = rope(k, positions, cfg.rope_theta)
+    def forward(self, x, positions, cfg: ModelConfig, *, causal: bool = True,
+                window: int = 0, kv=None):
+        """Full-sequence attention: (out [B, S, D], (k, v) for caching).
+        `kv` overrides the keys and values (cross-attention to the
+        encoder's memory): taken as given, with no RoPE; q is RoPE'd with
+        `positions` either way."""
+        if kv is None:
+            q, k, v = self.qkv(x)
+            k = rope(k, positions, cfg.rope_theta)
+        else:
+            q, (k, v) = project(x, self.wq), kv
         q = rope(q, positions, cfg.rope_theta)
-        o = flash_attention(q, k, v, causal=True, window=window,
+        o = flash_attention(q, k, v, causal=causal, window=window,
                             logit_cap=cfg.attn_logit_softcap)
         return self.out(o), (k, v)
 
@@ -208,22 +223,30 @@ class MLP(nn.Module):
         self.wo = weight((f, d), f ** -0.5, dtype, device, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.wg.dtype)
         gate = F.silu(x @ self.wg)
         return (gate * (x @ self.wi)) @ self.wo
 
 
 class Embedding(nn.Module):
-    """table [V, D] (std 0.02), tied: the unembedding is its transpose
-    (every ported config ties them)."""
+    """table [V, D] (std 0.02); the unembedding is its transpose when
+    `cfg.tie_embeddings`, else its own weight `unembed` [D, V] (std
+    D^-0.5)."""
 
     def __init__(self, cfg: ModelConfig, dtype, device=None, generator=None):
         super().__init__()
         self.table = weight((cfg.vocab, cfg.d_model), 0.02, dtype, device,
                             generator)
+        if not cfg.tie_embeddings:
+            self.unembed = weight((cfg.d_model, cfg.vocab),
+                                  cfg.d_model ** -0.5, dtype, device,
+                                  generator)
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.table[tokens.long()]
 
-    def unembed(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-        """[B, S, D] -> fp32 logits [B, S, V], soft-capped."""
-        return softcap((x @ self.table.t()).float(), cfg.final_logit_softcap)
+    def logits(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+        """The unembedding: [B, S, D] -> fp32 logits [B, S, V],
+        soft-capped."""
+        w = self.table.t() if cfg.tie_embeddings else self.unembed
+        return softcap((x @ w).float(), cfg.final_logit_softcap)

@@ -1,7 +1,6 @@
-"""Model assembly: init and the full-sequence forward, for the dense, moe,
-ssm and hybrid families.
+"""Model assembly: init and the full-sequence forward, for every family.
 
-The JAX package's `models/model.py` for those families:
+The JAX package's `models/model.py`:
   dense   the plain stack, and gemma2's local/global alternation
           (`alt_local_global`: layer 2i attends within `sliding_window`,
           layer 2i+1 globally);
@@ -9,15 +8,22 @@ The JAX package's `models/model.py` for those families:
           alternation (`alt_dense_moe`: layer 2i dense, 2i+1 MoE);
   ssm     mamba2: every layer a pre-norm SSD mixer, no attention, no MLP;
   hybrid  hymba: sliding-window attention and the SSD mixer side by side
-          on the same normed input, `x + 0.5 * (a + y)`, then the MLP.
+          on the same normed input, `x + 0.5 * (a + y)`, then the MLP;
+  encdec  seamless-m4t: `n_enc_layers` dense blocks with non-causal
+          attention over `enc_embeds` (`enc`, then `enc_norm`), then the
+          decoder layers: causal self-attention, cross-attention to the
+          encoder's memory (its keys and values not RoPE'd), the MLP.
+The frontend stubs (internvl2's vision, seamless's audio) hand in
+precomputed embeddings: `inputs["embeds"]` in place of the tokens, or
+seamless's `inputs["enc_embeds"]` for the encoder.
 The JAX package stacks layer weights on a leading L axis for `lax.scan`
 (under `alt_dense_moe` two stacks, `layers_dense` and `layers_moe`,
-scanned in pairs); here the layers are one `nn.ModuleList` in the order
-they run, in a Python loop (`interop.params_from_arrays` splits the L
-axes and interleaves the two stacks). Its sharding constraints, remat and
-`models/flags.py` are compile-time concerns of XLA with no counterpart
-here. The encdec family, the modality frontends and untied embeddings are
-not ported (`ROADMAP.md` queue 1 item 12) and raise `NotImplementedError`.
+scanned in pairs; encdec's `enc` and `dec`); here the layers are
+`nn.ModuleList`s in the order they run, in a Python loop (the decoder's
+in `layers`, so that the decode step keeps one loop;
+`interop.params_from_arrays` splits the L axes and interleaves the two
+MoE stacks). Its sharding constraints, remat and `models/flags.py` are
+compile-time concerns of XLA with no counterpart here.
 """
 from __future__ import annotations
 
@@ -29,24 +35,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise unless the port runs `cfg`: a family of FAMILIES, token inputs
-    (no frontend), tied embeddings."""
-    if (cfg.family not in FAMILIES or cfg.frontend != "none"
-            or not cfg.tie_embeddings):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (frontend {cfg.frontend!r}, "
-            f"tie_embeddings={cfg.tie_embeddings}) is not ported to "
-            f"repro_torch; the port runs the {', '.join(FAMILIES)} families "
-            f"on token inputs with tied embeddings (ROADMAP.md queue 1 "
-            f"item 12)")
-
-
 def layer_kind(cfg: ModelConfig, i: int) -> str:
-    """Layer i's block: "dense", "moe", "ssm" or "hybrid"."""
+    """Layer i's block (of `Model.layers`, the decoder's under encdec):
+    "dense", "moe", "ssm", "hybrid" or "encdec"."""
     if cfg.family == "moe" and cfg.alt_dense_moe:
         return "dense" if i % 2 == 0 else "moe"
     return cfg.family
@@ -79,9 +70,10 @@ class DenseLayer(nn.Module):
     def ffn(self, h, cfg: ModelConfig):
         return self.mlp(h)
 
-    def forward(self, cfg: ModelConfig, x, positions, *, window: int):
+    def forward(self, cfg: ModelConfig, x, positions, *, window: int,
+                causal: bool = True):
         h = L.rms_norm(x, self.ln1, cfg.norm_eps)
-        a, kv = self.attn(h, positions, cfg, window=window)
+        a, kv = self.attn(h, positions, cfg, causal=causal, window=window)
         x = x + a
         h = L.rms_norm(x, self.ln2, cfg.norm_eps)
         return x + self.ffn(h, cfg), kv
@@ -136,20 +128,56 @@ class HybridLayer(nn.Module):
         return x + self.mlp(h), (kv, st)
 
 
+class DecoderLayer(nn.Module):
+    """The encdec decoder's block: ln1 -> causal self-attention ->
+    residual, lnx -> cross-attention to the encoder's memory -> residual,
+    ln2 -> MLP -> residual."""
+
+    def __init__(self, cfg: ModelConfig, device=None, generator=None):
+        super().__init__()
+        dt, d = L.dtype_of(cfg), cfg.d_model
+        self.ln1 = L.zeros((d,), dt, device)
+        self.attn = L.Attention(cfg, dt, device, generator)
+        self.lnx = L.zeros((d,), dt, device)
+        self.xattn = L.Attention(cfg, dt, device, generator)
+        self.ln2 = L.zeros((d,), dt, device)
+        self.mlp = L.MLP(d, cfg.d_ff, dt, device, generator)
+
+    def forward(self, cfg: ModelConfig, x, positions, memory):
+        """(x, ((k, v) self, (mk, mv) cross)): the cross keys and values
+        are the memory's projections, not RoPE'd; the cross query is
+        RoPE'd with `positions`, as in the JAX package's prefill."""
+        h = L.rms_norm(x, self.ln1, cfg.norm_eps)
+        a, kv = self.attn(h, positions, cfg)
+        x = x + a
+        h = L.rms_norm(x, self.lnx, cfg.norm_eps)
+        mkv = self.xattn.kv(memory)
+        c, _ = self.xattn(h, positions, cfg, causal=False, kv=mkv)
+        x = x + c
+        h = L.rms_norm(x, self.ln2, cfg.norm_eps)
+        return x + self.mlp(h), (kv, mkv)
+
+
 LAYERS = {"dense": DenseLayer, "moe": MoELayer, "ssm": SSMLayer,
-          "hybrid": HybridLayer}
+          "hybrid": HybridLayer, "encdec": DecoderLayer}
 
 
 class Model(nn.Module):
     """Embedding, `cfg.n_layers` layers (`layer_kind` of each) and the
-    final norm. With no `generator` the weights are left uninitialized (to
-    be copied in)."""
+    final norm; under encdec also the encoder's `n_enc_layers` dense
+    blocks (`enc`) and its norm (`enc_norm`). With no `generator` the
+    weights are left uninitialized (to be copied in)."""
 
     def __init__(self, cfg: ModelConfig, device=None, generator=None):
         super().__init__()
-        check_ported(cfg)
-        self.embed = L.Embedding(cfg, L.dtype_of(cfg), device, generator)
-        self.final_norm = L.zeros((cfg.d_model,), L.dtype_of(cfg), device)
+        dt = L.dtype_of(cfg)
+        self.embed = L.Embedding(cfg, dt, device, generator)
+        self.final_norm = L.zeros((cfg.d_model,), dt, device)
+        if cfg.family == "encdec":
+            self.enc = nn.ModuleList(
+                DenseLayer(cfg, device, generator)
+                for _ in range(cfg.n_enc_layers))
+            self.enc_norm = L.zeros((cfg.d_model,), dt, device)
         self.layers = nn.ModuleList(
             LAYERS[layer_kind(cfg, i)](cfg, device, generator)
             for i in range(cfg.n_layers))
@@ -166,25 +194,43 @@ def _stack(kvs):
     return (torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs]))
 
 
+def _positions(s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device)[None, :]
+
+
+def encode(cfg: ModelConfig, params: Model, enc_x: torch.Tensor):
+    """The encdec encoder: its dense blocks, non-causal and global, over
+    `enc_x` [B, S_enc, D] with its own positions, then `enc_norm`."""
+    positions = _positions(enc_x.shape[1], enc_x.device)
+    for lp in params.enc:
+        enc_x, _ = lp(cfg, enc_x, positions, window=0, causal=False)
+    return L.rms_norm(enc_x, params.enc_norm, cfg.norm_eps)
+
+
 def forward_hidden(cfg: ModelConfig, params: Model, inputs: dict):
     """Full-sequence forward up to the final norm (pre-unembed).
 
-    Returns (hidden [B,S,D], caches). inputs: tokens [B,S] (the ported
-    configs have no modality frontend). Caches as the JAX package's scan
-    returns them with `collect_cache=True`, each stacked on a leading
-    layer axis:
+    Returns (hidden [B,S,D], caches). inputs: tokens [B,S] int, or embeds
+    [B,S,D] (the frontend stub; bf16 from the serving launcher whatever
+    the model's dtype); encdec also takes enc_embeds [B,S_enc,D]. Caches as
+    the JAX package's scan returns them with `collect_cache=True`, each
+    stacked on a leading layer axis:
       dense, moe       (k, v), each [L, B, S, K, h];
       alt_local_global (local (k, v), global (k, v)), [L/2, ...] each;
       alt_dense_moe    (dense (k, v), moe (k, v)), [L/2, ...] each;
       ssm              (state [L, B, H, P, N] fp32, conv tail
                         [L, B, W-1, ch]);
-      hybrid           ((k, v), (state, conv tail)).
+      hybrid           ((k, v), (state, conv tail));
+      encdec           ((k, v) self, (mk, mv) cross [L, B, S_enc, K, h]).
     """
-    check_ported(cfg)
-    x = params.embed.embed(inputs["tokens"])
-    positions = torch.arange(x.shape[1], dtype=torch.int32,
-                             device=x.device)[None, :]
-    kvs, states = [], []
+    if "embeds" in inputs:
+        x = inputs["embeds"]
+    else:
+        x = params.embed.embed(inputs["tokens"])
+    positions = _positions(x.shape[1], x.device)
+    if cfg.family == "encdec":
+        memory = encode(cfg, params, inputs["enc_embeds"])
+    kvs, states, cross = [], [], []
     for i, lp in enumerate(params.layers):
         kind = layer_kind(cfg, i)
         if kind == "ssm":
@@ -194,6 +240,10 @@ def forward_hidden(cfg: ModelConfig, params: Model, inputs: dict):
             x, (kv, st) = lp(cfg, x, positions)
             kvs.append(kv)
             states.append(st)
+        elif kind == "encdec":
+            x, (kv, mkv) = lp(cfg, x, positions, memory)
+            kvs.append(kv)
+            cross.append(mkv)
         else:
             x, kv = lp(cfg, x, positions, window=layer_window(cfg, i))
             kvs.append(kv)
@@ -202,6 +252,8 @@ def forward_hidden(cfg: ModelConfig, params: Model, inputs: dict):
         return x, _stack(states)
     if cfg.family == "hybrid":
         return x, (_stack(kvs), _stack(states))
+    if cfg.family == "encdec":
+        return x, (_stack(kvs), _stack(cross))
     if cfg.alt_local_global or (cfg.family == "moe" and cfg.alt_dense_moe):
         return x, (_stack(kvs[0::2]), _stack(kvs[1::2]))
     return x, _stack(kvs)
@@ -211,4 +263,4 @@ def forward(cfg: ModelConfig, params: Model, inputs: dict):
     """Full logits [B, S, V] (fp32) and the caches (tests and small-scale
     use; the serving path unembeds only the last position)."""
     x, caches = forward_hidden(cfg, params, inputs)
-    return params.embed.unembed(x, cfg), caches
+    return params.embed.logits(x, cfg), caches

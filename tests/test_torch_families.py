@@ -216,13 +216,17 @@ def test_decode_consistent_with_forward(arch):
 def _ref_leaf(cfg, tree, name):
     """The JAX leaf of the port's parameter `name`."""
     parts = name.split(".")
-    if parts[0] != "layers":
+    if parts[0] not in ("layers", "enc"):
         node = tree
         for part in parts:
             node = node[part]
         return node
     i = int(parts[1])
-    if cfg.alt_dense_moe:
+    if parts[0] == "enc":
+        node = tree["enc"]
+    elif cfg.family == "encdec":
+        node = tree["dec"]
+    elif cfg.alt_dense_moe:
         node, i = tree["layers_dense" if i % 2 == 0 else "layers_moe"], i // 2
     else:
         node = tree["layers"]
@@ -231,7 +235,7 @@ def _ref_leaf(cfg, tree, name):
     return node[i]
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", tbase.ARCHS)
 def test_init_params_shapes_and_scales_match_jax(arch):
     jcfg, cfg = _configs(arch, "bfloat16")
     tree = _jax_init(jcfg, jax.random.PRNGKey(0))
@@ -240,7 +244,9 @@ def test_init_params_shapes_and_scales_match_jax(arch):
     named = list(model.named_parameters())
     # every reference leaf, once per layer of its stack
     assert len(named) == sum(
-        np.asarray(a).shape[0] if path[0].key.startswith("layers") else 1
+        np.asarray(a).shape[0]
+        if path[0].key.startswith(("layers", "enc", "dec"))
+        and path[0].key != "enc_norm" else 1
         for path, a in jax.tree_util.tree_flatten_with_path(tree)[0])
     assert n_ref <= len(named)
     for name, p in named:
@@ -258,20 +264,25 @@ def test_init_params_shapes_and_scales_match_jax(arch):
         {k: (tuple(v.shape), str(v.dtype)) for k, v in jcache.items()}
 
 
-@pytest.mark.parametrize("arch", tbase.PORTED)
+@pytest.mark.parametrize("arch", tbase.ARCHS)
 def test_ported_configs_equal_jax(arch):
     for fn in ("get_config", "smoke_config"):
         assert dataclasses.asdict(getattr(tbase, fn)(arch)) == \
             dataclasses.asdict(getattr(jbase, fn)(arch)), (arch, fn)
 
 
-def test_ported_archs():
-    assert len(tbase.PORTED) == 8 and set(tbase.PORTED) <= set(tbase.ARCHS)
-    assert set(tbase.ARCHS) - set(tbase.PORTED) == {"internvl2_1b",
-                                                    "seamless_m4t_medium"}
+def test_archs_are_the_jax_packages():
+    """The port registers the JAX package's ten architectures, in its
+    order, each with a config module of its own."""
+    assert tbase.ARCHS == jbase.ARCHS and len(set(tbase.ARCHS)) == 10
+    assert {tbase.get_config(a).family for a in tbase.ARCHS} == {
+        "dense", "moe", "ssm", "hybrid", "encdec"}
+    assert {tbase.get_config(a).frontend for a in tbase.ARCHS} == {
+        "none", "vision", "audio"}
 
 
-@pytest.mark.parametrize("arch", FAMILIES + ["yi_34b"])
+@pytest.mark.parametrize("arch", FAMILIES + ["yi_34b", "internvl2_1b",
+                                             "seamless_m4t_medium"])
 def test_serve_main_runs_each_family_on_the_cpu(arch, capsys):
     tokens = serve.main(["--arch", arch.replace("_", "-"), "--smoke",
                          "--device", "cpu", "--batch", "2", "--prompt-len",

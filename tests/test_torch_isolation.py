@@ -7,7 +7,7 @@
   the gather formulation), `BFSServer` queries (batched and streamed), a
   session that records its plans in an artifact cache and one that
   pre-warms them, the LLM serving entry point at smoke size for every
-  ported family, and the quickstart example;
+  family and both frontend stubs, and the quickstart example;
 * `Engine(g)`, `BFSServer`, the serving entry point and both BFS examples
   with no device ask for CUDA and raise without it, a partitioned query and `parallel.ranks`
   too (a rank's device is never a quiet CPU);
@@ -103,7 +103,8 @@ toks = serve.main(["--arch", "gemma2-9b", "--smoke", "--device", "cpu",
                    "--batch", "2", "--prompt-len", "20", "--gen", "3"])
 assert toks.shape == (2, 3), toks.shape
 for arch in ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
-             "mamba2-2-7b", "hymba-1-5b"):
+             "mamba2-2-7b", "hymba-1-5b", "internvl2-1b",
+             "seamless-m4t-medium"):
     toks = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                        "--batch", "2", "--prompt-len", "20", "--gen", "2"])
     assert toks.shape == (2, 2), (arch, toks.shape)
@@ -216,7 +217,8 @@ def test_sharded_ranks_on_the_card_match_the_cpu(tmp_path):
 def test_serve_without_device_needs_cuda(monkeypatch):
     from repro_torch.launch import serve
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for arch in ("yi-9b", "qwen3-moe-235b-a22b", "mamba2-2-7b"):
+    for arch in ("yi-9b", "qwen3-moe-235b-a22b", "mamba2-2-7b",
+                 "seamless-m4t-medium"):
         with pytest.raises(RuntimeError, match="CUDA"):
             serve.main(["--arch", arch, "--smoke"])
         with pytest.raises(RuntimeError, match="CUDA"):
