@@ -199,7 +199,23 @@ a nonzero exit; nothing is caught):
    captured inputs); a profile of one decode step; the kernel's time at
    each of the model's decode shapes (seamless: self and cross) against
    its bound, its plain version and one SDPA call.
-7. One JSON line listing the kernels, then the result line.
+7. Training (no kernel on this path: the JAX training path calls no
+   Pallas kernel; every `ops` count must stay 0). 7a: the fp32 smoke
+   configs of stablelm-3b, qwen3-moe, mamba2, hymba, seamless-m4t and
+   internvl2, the same weights and `data.synthetic` batches, 3 train
+   steps (AdamW, warmup 2) on the card and on the CPU: losses within
+   1e-4 relative, every final parameter within 1e-3 (relative Frobenius
+   norm). 7b: stablelm-3b at every published width and all 32 layers
+   (2.67 G parameters, bf16, fp32 moments) through `launch.train.train`,
+   seq 4,096 (train_4k's length), global batch cut from 256 to 4 in 2
+   micro-batches, 4 steps, every layer and loss chunk recomputed in
+   backward: step 0 and the steady step's seconds, tokens/s, peak
+   memory, each step's loss and grad norm (finite), the bf16 and fp32
+   operation bounds, and one more step profiled. 7c: the launcher at
+   smoke size on the card, 4 steps with a checkpoint every 2 into a
+   directory under build/, then again to 6: it resumes from step 4, and
+   steps 4-5 give an uninterrupted 6-step run's losses within 1e-6.
+8. One JSON line listing the kernels, then the result line.
 
 `--out FILE` also writes the full record (timings, shapes, profiles) as
 JSON.
@@ -278,6 +294,22 @@ FAMILY_SERVE = (("qwen3-moe-235b-a22b", dict(n_layers=8)),
 SERVE_PARITY = ("gemma2-9b", "yi-9b", "qwen3-moe-235b-a22b",
                 "llama4-maverick-400b-a17b", "mamba2-2-7b", "hymba-1-5b",
                 "internvl2-1b", "seamless-m4t-medium")
+# Phase 7a: one fp32 smoke config a family, trained on the card and the
+# CPU from the same weights and batches
+TRAIN_PARITY = dict(archs=("stablelm-3b", "qwen3-moe-235b-a22b",
+                           "mamba2-2-7b", "hymba-1-5b", "seamless-m4t-medium",
+                           "internvl2-1b"), batch=2, seq=32, steps=3)
+TRAIN_LOSS_RTOL, TRAIN_PARAM_RTOL = 1e-4, 1e-3
+# Phase 7b: stablelm-3b at every published width and depth, cut from
+# configs/shapes.py's train_4k (global batch 256 at 4,096) to 4 sequences
+# in 2 micro-batches, 4 steps
+TRAIN_FULL = dict(arch="stablelm-3b", batch=4, seq=4096, accum=2, steps=4)
+# Phase 7c: the launcher's restart at smoke size
+TRAIN_RESTART = dict(arch="stablelm-3b", batch=2, seq=32, first=4, total=6,
+                     every=2)
+BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+# device ops that are matrix products, by a part of their kernel's name
+MATMUL_KEYS = ("gemm", "matmul", "cutlass", "xmma", "cublas", "nvjet")
 SDPA_NOTE = ("F.scaled_dot_product_attention (enable_gqa, boolean mask from "
              "cache_len) computes the cap-0 function; no single PyTorch call "
              "computes the soft-capped one the model runs (cap 50)")
@@ -1464,10 +1496,41 @@ def profile_decode_step(step):
         return sum(r["device_ms"] for r in prof["top"]
                    if any(k in r["op"].lower() for k in keys)) / busy
     prof["decode_attn_share"] = share("decode_attn")
-    prof["matmul_share"] = share("gemm", "matmul", "cutlass", "xmma",
-                                 "cublas", "nvjet")
+    prof["matmul_share"] = share(*MATMUL_KEYS)
     prof["top"] = prof["top"][:12]
     return prof
+
+
+def profile_device(fn, top=12):
+    """`fn()` under torch.profiler with device activity only, read from the
+    raw kineto events (a full-width train step runs ~10^5 kernels, and
+    building the profiler's event tree for them takes minutes): the wall,
+    the device's busy ms (its ops' summed durations) and idle share, the
+    matrix products' share of device time, and the top device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    sums = {}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        ms, n = sums.get(evt.name(), (0.0, 0))
+        sums[evt.name()] = (ms + evt.duration_ns() / 1e6, n + 1)
+    busy = sum(ms for ms, _ in sums.values())
+    rows = sorted(sums.items(), key=lambda r: -r[1][0])
+    matmul = sum(ms for name, (ms, _) in rows
+                 if any(k in name.lower() for k in MATMUL_KEYS))
+    return dict(wall_s=wall, device_busy_ms=busy,
+                idle_share=max(0.0, 1.0 - busy / 1e3 / wall),
+                matmul_share=matmul / busy if busy else 0.0,
+                device_ops=sum(n for _, n in sums.values()),
+                top=[dict(op=k[:80], device_ms=ms, calls=n)
+                     for k, (ms, n) in rows[:top]])
 
 
 def bfs_paths(args, rng, dev, record, errs):
@@ -2934,6 +2997,196 @@ def family_phase(args, dev, record, entry):
     log(f"phase 6b: {record['families_s']:.1f} s")
 
 
+# ------------------------------------------------------------- training --
+
+def train_parity_phase(args, dev, record):
+    """Phase 7a: one fp32 smoke config a family, the same weights (drawn on
+    the CPU, copied to the card) and batches, `TRAIN_PARITY["steps"]` train
+    steps on the card and on the CPU. Losses within TRAIN_LOSS_RTOL, each
+    final parameter within TRAIN_PARAM_RTOL of the CPU's (relative
+    Frobenius norm); no `ops` wrapper launched a kernel."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ocfg = OptConfig(warmup_steps=2, decay_steps=10)
+    b, s, steps = (TRAIN_PARITY[k] for k in ("batch", "seq", "steps"))
+    rows = record["train_parity"] = {}
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    for arch in TRAIN_PARITY["archs"]:
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+        cpu = M.init_params(cfg, torch.Generator().manual_seed(args.seed))
+        sides = [(cpu, torch.device("cpu")),
+                 (copy.deepcopy(cpu).to(dev), dev)]
+        fn = make_train_step(cfg, ocfg)
+        losses = [[], []]
+        for i, (params, device) in enumerate(sides):
+            state = init_opt_state(params, ocfg)
+            for step in range(steps):
+                inputs = device_batch(cfg, step, b, s, args.seed, device)
+                params, state, m = fn(params, state, inputs)
+                losses[i].append(float(m["loss"]))
+        (lc, lg), (pc, pg) = losses, (sides[0][0], sides[1][0])
+        loss_err = max(abs(g - c) / abs(c) for c, g in zip(lc, lg))
+        with torch.no_grad():
+            param_err = max(
+                float((q.cpu() - p).norm() / p.norm().clamp_min(1e-30))
+                for p, q in zip(pc.parameters(), pg.parameters()))
+        rows[cfg.name] = dict(losses_cpu=lc, losses_gpu=lg,
+                              loss_rel_err=loss_err, param_rel_err=param_err,
+                              params=sum(p.numel() for p in pc.parameters()))
+        assert all(np.isfinite(lg)), f"{arch}: non-finite loss {lg}"
+        assert loss_err <= TRAIN_LOSS_RTOL, \
+            f"{arch}: losses {lg} on the card, {lc} on the CPU"
+        assert param_err <= TRAIN_PARAM_RTOL, \
+            f"{arch}: a parameter differs by {param_err} (relative)"
+        del sides, pc, pg
+    launched = sum(ops.LAUNCHES.values())
+    record["train_parity_launches"] = launched
+    assert launched == 0, f"the training path launched {dict(ops.LAUNCHES)}"
+    log(f"phase 7a: {', '.join(rows)} (fp32) train {steps} steps of "
+        f"{b} x {s} alike on cuda and cpu: losses within "
+        f"{max(r['loss_rel_err'] for r in rows.values()):.2g} (relative), "
+        f"parameters within "
+        f"{max(r['param_rel_err'] for r in rows.values()):.2g}; no kernel "
+        f"launched ({time.perf_counter() - t0:.1f} s)")
+
+
+def train_flops(cfg, batch: int, seq: int) -> dict:
+    """The operations one train step needs (matmul multiply-adds x 2):
+    bf16 weight products (every layer's and the unembedding's forward run
+    twice, under activation checkpointing, plus a backward of twice the
+    forward) and the fp32 attention products (QK^T and PV over the key
+    blocks the chunked attention visits, also x 4)."""
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab
+    hq, hk, h = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    per_token = cfg.n_layers * (d * (hq + 2 * hk) * h + hq * h * d
+                                + 3 * d * f) + d * v
+    blocks = -(-seq // 512)
+    visited = blocks * (blocks + 1) // 2 * 512 * 512       # causal blocks
+    attn = cfg.n_layers * batch * hq * h * visited * 2 * 2
+    return dict(bf16=4 * 2 * per_token * batch * seq, fp32=4 * attn)
+
+
+def train_full_phase(args, dev, record):
+    """Phase 7b: stablelm-3b at every published width and depth through
+    `launch.train.train`: TRAIN_FULL's steps at seq 4,096 (train_4k's
+    length), the global batch cut from 256 to 4 in 2 micro-batches, no
+    checkpoint. Step 0 (first calls) apart from the rest; the loss and
+    grad norm of each step (finite), peak memory, tokens/s; then one more
+    step profiled (device-busy ms against its wall)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as LT
+    cfg = get_config(TRAIN_FULL["arch"])
+    b, s, accum, steps = (TRAIN_FULL[k]
+                          for k in ("batch", "seq", "accum", "steps"))
+    torch.cuda.synchronize(dev)          # the context, before its stats
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    run = LT.train(cfg, steps=steps, batch=b, seq=s, device=dev,
+                   accum=accum, seed=args.seed,
+                   log=lambda msg: log(f"phase 7b: {msg}"))
+    peak = torch.cuda.max_memory_allocated(dev)
+    launched = sum(ops.LAUNCHES.values())
+    assert len(run.losses) == steps
+    assert all(np.isfinite(run.losses)) and all(np.isfinite(run.grad_norms)), \
+        (run.losses, run.grad_norms)
+    assert launched == 0, f"the training path launched {dict(ops.LAUNCHES)}"
+    steady = float(np.mean(run.step_s[1:]))
+    n_params = sum(p.numel() for p in run.params.parameters())
+    flops = train_flops(cfg, b, s)
+    bound_ms = dict(bf16=flops["bf16"] / BF16_TENSOR_OPS_PER_S * 1e3,
+                    fp32=flops["fp32"] / CUDA_CORE_OPS_PER_S * 1e3)
+    inputs = LT.device_batch(cfg, steps, b, s, args.seed, dev)
+    prof = profile_device(
+        lambda: run.step_fn(run.params, run.opt_state, inputs))
+    rec = record["train_full"] = dict(
+        arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=cfg.n_heads, d_ff=cfg.d_ff, vocab=cfg.vocab, dtype=cfg.dtype,
+        params=n_params, seq=s, global_batch=b, accum=accum, steps=steps,
+        reduced=["global batch 256 -> 4 (2 micro-batches of 2): train_4k "
+                 "at 256 x 4,096 is 64x the tokens a step",
+                 f"{steps} steps, no checkpoint"],
+        losses=run.losses, grad_norms=run.grad_norms, step_s=run.step_s,
+        first_step_s=run.step_s[0], steady_step_s=steady,
+        tokens_per_s=b * s / steady, peak_bytes=peak, init_s=run.init_s,
+        flops=flops, bound_ms=bound_ms,
+        bf16_mfu=flops["bf16"] / BF16_TENSOR_OPS_PER_S / steady,
+        launches=launched, profile=prof)
+    log(f"phase 7b: {cfg.name} at full width ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {n_params / 1e9:.3f} G parameters, {cfg.dtype}), "
+        f"global batch {b} x {s} in {accum} micro-batches: weights "
+        f"{run.init_s:.1f} s, step 0 {run.step_s[0]:.3f} s, steps 1-"
+        f"{steps - 1} {steady:.3f} s each ({rec['tokens_per_s']:.0f} "
+        f"tokens/s), peak memory {peak / 2**30:.2f} GiB; losses "
+        f"{[round(x, 4) for x in run.losses]}, grad norms "
+        f"{[round(x, 4) for x in run.grad_norms]}; bounds: bf16 products "
+        f"{bound_ms['bf16']:.0f} ms ({flops['bf16']:.3g} operations), fp32 "
+        f"attention {bound_ms['fp32']:.0f} ms ({flops['fp32']:.3g}); one "
+        f"more step profiled: wall {prof['wall_s']:.3f} s, device busy "
+        f"{prof['device_busy_ms']:.1f} ms over {prof['device_ops']} device "
+        f"ops (idle share {prof['idle_share']:.3f}), matrix products "
+        f"{prof['matmul_share']:.3f} of device time; top: "
+        + "; ".join(f"{r['op'][:40]} {r['device_ms']:.1f} ms x "
+                    f"{r['calls']}" for r in prof["top"][:5]))
+    del run, inputs
+
+
+def train_restart_phase(args, dev, record):
+    """Phase 7c: the launcher (`launch.train.main`, --device cuda) at smoke
+    size, TRAIN_RESTART["first"] steps with a checkpoint every
+    TRAIN_RESTART["every"] into a directory under build/, then the same
+    command up to TRAIN_RESTART["total"]: it resumes from the last
+    checkpoint, and its steps give an uninterrupted run's losses within
+    1e-6 (relative)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from repro_torch.launch import train as LT
+    first, total, every = (TRAIN_RESTART[k]
+                           for k in ("first", "total", "every"))
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=build)
+    try:
+        base = ["--arch", TRAIN_RESTART["arch"], "--smoke", "--batch",
+                str(TRAIN_RESTART["batch"]), "--seq",
+                str(TRAIN_RESTART["seq"]), "--ckpt-every", str(every),
+                "--seed", str(args.seed), "--device", "cuda"]
+        whole = LT.main(base + ["--steps", str(total), "--ckpt",
+                                os.path.join(root, "whole")])
+        cut = os.path.join(root, "cut")
+        head = LT.main(base + ["--steps", str(first), "--ckpt", cut])
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            tail = LT.main(base + ["--steps", str(total), "--ckpt", cut])
+        text = out.getvalue()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    assert f"[train] resumed from step {first}" in text, text
+    assert len(tail) == total - first, tail
+    err = max(abs(a - b) / abs(b) for a, b in zip(tail, whole[first:]))
+    record["train_restart"] = dict(whole=whole, head=head, tail=tail,
+                                   rel_err=err,
+                                   head_bitwise=head == whole[:first])
+    assert err <= 1e-6, f"resumed losses {tail}, uninterrupted {whole}"
+    log(f"phase 7c: {TRAIN_RESTART['arch']} smoke on cuda: {first} steps "
+        f"with a checkpoint every {every}, then resumed from step {first} "
+        f"to {total}: losses {[round(x, 6) for x in tail]} equal the "
+        f"uninterrupted run's within {err:.2g} (its first {first} steps "
+        f"{'bit for bit' if head == whole[:first] else 'within rounding'})")
+
+
 # ------------------------------------------------------------------ main --
 
 def main() -> int:
@@ -3045,6 +3298,18 @@ def main() -> int:
     # 6b. the moe, ssm, hybrid and encdec families and the vision frontend
     # at full width
     family_phase(args, dev, record, entries[-1])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7. training: parity with the CPU, stablelm-3b at full width, restart
+    t0 = time.perf_counter()
+    train_parity_phase(args, dev, record)
+    train_full_phase(args, dev, record)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_restart_phase(args, dev, record)
+    record["train_s"] = time.perf_counter() - t0
+    log(f"phase 7: {record['train_s']:.1f} s")
     record["total_s"] = time.perf_counter() - t_start
     log(f"total {record['total_s']:.1f} s")
     if args.out:
@@ -3052,7 +3317,7 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
 
-    # 7. the kernels line, then the result line
+    # 8. the kernels line, then the result line
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

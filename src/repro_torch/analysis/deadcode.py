@@ -6,11 +6,13 @@ does; this module draws a machine-checked line between the two halves:
 
 * **BFS core**: everything reachable from the BFS entry points
   (``repro_torch.launch.bfs_run``, ``repro_torch.launch.bfs_serve``).
-* **Quarantined template**: the LLM-serving modules
-  (``repro_torch.models``, ``repro_torch.configs``, ``repro_torch.train``,
-  ``repro_torch.kernels.decode_attn``, and the template launcher
-  ``repro_torch.launch.serve``), the modules that
-  `tests/test_torch_isolation.py` holds apart from the BFS path.
+* **Quarantined template**: the LLM modules (``repro_torch.models``,
+  ``repro_torch.configs``, ``repro_torch.train``, ``repro_torch.data``,
+  ``repro_torch.checkpoint``, ``repro_torch.ft``,
+  ``repro_torch.kernels.decode_attn``, and the template launchers
+  ``repro_torch.launch.serve`` and ``repro_torch.launch.train``), the
+  modules that `tests/test_torch_isolation.py` holds apart from the BFS
+  path.
 
 **DC001** fires when a non-quarantined module imports a quarantined one at
 module level (eager import). Function-scoped lazy imports are allowed:
@@ -39,6 +41,7 @@ BFS_ENTRYPOINTS: Tuple[str, ...] = (
 
 TEMPLATE_ENTRYPOINTS: Tuple[str, ...] = (
     "repro_torch.launch.serve",
+    "repro_torch.launch.train",
 )
 
 # Modules (by prefix) that belong to the LLM-serving template and must never
@@ -46,9 +49,13 @@ TEMPLATE_ENTRYPOINTS: Tuple[str, ...] = (
 QUARANTINE_PREFIXES: Tuple[str, ...] = (
     "repro_torch.models",
     "repro_torch.train",
+    "repro_torch.data",
+    "repro_torch.checkpoint",
+    "repro_torch.ft",
     "repro_torch.configs",
     "repro_torch.kernels.decode_attn",
     "repro_torch.launch.serve",
+    "repro_torch.launch.train",
 )
 
 

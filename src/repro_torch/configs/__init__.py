@@ -1,1 +1,2 @@
-"""Model configurations of the ported LLM serving path (own copies)."""
+"""Model configurations and input-shape cells of the ported LLM path (own
+copies)."""

@@ -4,9 +4,10 @@ Both packages can then compute on identical inputs: the graph, its ELL
 tiles, a mid-search `BatchState` or `BFSState` or one rank's partitioned
 stepper state (the BFS system has no
 weights; the graph and the search state take their place), and the LLM
-serving path's weights and caches (KV, SSM state and conv tail). Only numpy crosses over; this
-module imports nothing of the JAX package, and loads the LLM modules only
-when weights or caches are carried (the BFS side never needs them).
+path's weights, caches (KV, SSM state and conv tail) and optimizer state.
+Only numpy crosses over; this module imports nothing of the JAX package,
+and loads the LLM modules only when weights, caches or optimizer state
+are carried (the BFS side never needs them).
 """
 from __future__ import annotations
 
@@ -101,18 +102,12 @@ def _stack_entry(cfg, tree: dict, stack: str, i: int):
     return tree[stack], i
 
 
-def params_from_arrays(cfg, tree: dict, device=None):
-    """The port's `models.model.Model` from the JAX package's param pytree
-    as nested dicts of numpy arrays: `embed.table` (and `embed.unembed`
-    when the embeddings are untied), `final_norm`, and the layers stacked
-    on a leading L axis (as `init_params` builds them: `layers`, or
-    `layers_dense` and `layers_moe`, or encdec's `enc` and `dec` with
-    `enc_norm`; the MoE experts on a second, E, axis). Each weight takes
-    the dtype the port's module gives it: the config's, but fp32 for the
-    MoE router and the SSM's `a_log`, `d_skip` and `dt_bias`, as in the
-    JAX package."""
-    from repro_torch.models import model as MODEL
-    model = MODEL.Model(cfg, device=device)
+def arrays_by_name(cfg, tree: dict, model) -> dict:
+    """The numpy array of the JAX package's param-shaped pytree (the params,
+    a moment, the gradients) for each of `model`'s `named_parameters()`:
+    the layers' L axes split (`_stack_entry`), each checked against the
+    parameter's shape."""
+    out = {}
     for name, p in model.named_parameters():
         parts = name.split(".")
         if parts[0] in ("layers", "enc"):
@@ -126,8 +121,44 @@ def params_from_arrays(cfg, tree: dict, device=None):
         if tuple(np.shape(arr)) != tuple(p.shape):
             raise ValueError(f"{name}: shape {np.shape(arr)}, the port "
                              f"wants {tuple(p.shape)}")
-        p.copy_(_as(arr, p.dtype, device))
+        out[name] = arr
+    return out
+
+
+def params_from_arrays(cfg, tree: dict, device=None):
+    """The port's `models.model.Model` from the JAX package's param pytree
+    as nested dicts of numpy arrays: `embed.table` (and `embed.unembed`
+    when the embeddings are untied), `final_norm`, and the layers stacked
+    on a leading L axis (as `init_params` builds them: `layers`, or
+    `layers_dense` and `layers_moe`, or encdec's `enc` and `dec` with
+    `enc_norm`; the MoE experts on a second, E, axis). Each weight takes
+    the dtype the port's module gives it: the config's, but fp32 for the
+    MoE router and the SSM's `a_log`, `d_skip` and `dt_bias`, as in the
+    JAX package."""
+    from repro_torch.models import model as MODEL
+    model = MODEL.Model(cfg, device=device)
+    arrays = arrays_by_name(cfg, tree, model)
+    for name, p in model.named_parameters():
+        p.copy_(_as(arrays[name], p.dtype, device))
     return model
+
+
+def opt_state_from_arrays(cfg, tree: dict, device=None) -> dict:
+    """The port's optimizer state (`train.optimizer`: `m` and `v` keyed by
+    parameter name, `step` int32) from the JAX package's `opt_state` as
+    numpy arrays: its `m` and `v` param-shaped pytrees split as
+    `params_from_arrays` splits the weights, each moment in its array's
+    dtype (bfloat16 under `moment_dtype="bfloat16"`, else fp32)."""
+    from repro_torch.models import model as MODEL
+    shapes = MODEL.param_shapes(cfg)
+
+    def moments(key):
+        return {n: _as(a, torch.bfloat16 if str(np.asarray(a).dtype) ==
+                       "bfloat16" else torch.float32, device)
+                for n, a in arrays_by_name(cfg, tree[key], shapes).items()}
+    return {"m": moments("m"), "v": moments("v"),
+            "step": torch.tensor(int(np.asarray(tree["step"])),
+                                 dtype=torch.int32, device=device)}
 
 
 def cache_from_arrays(cfg, tree: dict, device=None) -> dict:

@@ -156,10 +156,12 @@ def _layer_caches(cfg: ModelConfig, cache: Cache, i: int):
     return cache[f"k_{side}"][i // 2], cache[f"v_{side}"][i // 2]
 
 
+@torch.no_grad()
 def decode_step(cfg: ModelConfig, params: MODEL.Model, cache: Cache, tokens,
                 positions):
     """One decode step. tokens [B,1] int32, positions [B] int32 ->
-    (logits [B,V] fp32, cache), the cache updated in place."""
+    (logits [B,V] fp32, cache), the cache updated in place (with no
+    autograd graph, also for a model whose weights require grad)."""
     x = params.embed.embed(tokens)
     for i, lp in enumerate(params.layers):
         kind = MODEL.layer_kind(cfg, i)
@@ -210,16 +212,19 @@ def _fit(k: torch.Tensor, s_alloc: int) -> torch.Tensor:
     return k[..., :s_alloc, :, :].contiguous()
 
 
+@torch.no_grad()
 def prefill(cfg: ModelConfig, params: MODEL.Model, inputs: dict,
             ctx_len: int):
-    """Run the full prompt; returns (last-token logits [B,V], cache).
+    """Run the full prompt; returns (last-token logits [B,V], cache), with
+    no autograd graph (a trained model serves with in-place caches).
 
     `inputs` as `model.forward_hidden` takes them: tokens, or the frontend
     stub's embeds; encdec also enc_embeds, whose keys and values become
     the cross caches as computed. `ctx_len` sizes the cache (>= prompt length) for subsequent decode.
     Only the last position is unembedded (never materializes [B, S, V]).
     """
-    hidden, caches = MODEL.forward_hidden(cfg, params, inputs)
+    hidden, caches = MODEL.forward_hidden(cfg, params, inputs,
+                                          collect_cache=True)
     logits = params.embed.logits(hidden[:, -1:], cfg)
     wc = _window_cache_len(cfg, ctx_len)
     if cfg.family == "ssm":

@@ -135,10 +135,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # ---------------------------------------------------------------- modules --
 
 def weight(shape, std: float, dtype, device=None, generator=None):
-    """A frozen weight drawn N(0, std^2) in fp32 from `generator` and cast
-    to `dtype` at once (so a full-width model never holds a full fp32
-    copy); uninitialized when `generator` is None (weights to be copied
-    in)."""
+    """A weight drawn N(0, std^2) in fp32 from `generator` and cast to
+    `dtype` at once (so a full-width model never holds a full fp32 copy);
+    uninitialized when `generator` is None (weights to be copied in).
+    Built frozen (`requires_grad=False`): serving builds no autograd graph,
+    and the train step turns gradients on for the model it trains."""
     if generator is None:
         t = torch.empty(shape, dtype=dtype, device=device)
     else:
@@ -149,10 +150,10 @@ def weight(shape, std: float, dtype, device=None, generator=None):
 
 def stacked_weight(n: int, shape, std: float, dtype, device=None,
                    generator=None):
-    """`n` frozen weights of `shape` stacked on a leading axis ([n, *shape],
+    """`n` weights of `shape` stacked on a leading axis ([n, *shape],
     the MoE expert stacks), each drawn as `weight` draws it, one at a time:
     the fp32 temporary is one entry, not the stack (llama4's [128, 5120,
-    8192] stacks would need 21.5 GB of it)."""
+    8192] stacks would need 21.5 GB of it). Frozen as `weight`'s."""
     t = torch.empty((n, *shape), dtype=dtype, device=device)
     if generator is not None:
         for i in range(n):
@@ -162,7 +163,8 @@ def stacked_weight(n: int, shape, std: float, dtype, device=None,
 
 
 def zeros(shape, dtype, device=None):
-    """A frozen zero weight (the norm scales, applied as 1 + scale)."""
+    """A zero weight (the norm scales, applied as 1 + scale), frozen as
+    `weight`'s."""
     return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
                         requires_grad=False)
 

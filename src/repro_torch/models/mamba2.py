@@ -125,12 +125,19 @@ def ssm_forward(params: SSM, x: torch.Tensor, cfg: ModelConfig,
     cum = torch.cumsum(dt * a, dim=2)                     # within-chunk cumsum
 
     # ---- intra-chunk (dual/quadratic form) ----
+    # In place without autograd (serving: one [b,c,q,k,h] buffer); out of
+    # place when a backward may need the factors.
+    grad = torch.is_grad_enabled()
     scores = cmat @ bmat.transpose(-1, -2)                # [b,c,q,k]
-    m = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).clamp_(
-        -60.0, 0.0).exp_()                                # decay [b,c,q,k,h]
     causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
-    m.mul_(scores[..., None]).mul_(causal[:, :, None])
-    m.mul_(dt[:, :, None, :, :])                          # m * dt_k first
+    m = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # decay [b,c,q,k,h]
+    if grad:
+        m = m.clamp(-60.0, 0.0).exp() * scores[..., None] * \
+            causal[:, :, None] * dt[:, :, None, :, :]
+    else:
+        m.clamp_(-60.0, 0.0).exp_()
+        m.mul_(scores[..., None]).mul_(causal[:, :, None])
+        m.mul_(dt[:, :, None, :, :])                      # m * dt_k first
     y_intra = torch.einsum("bcqkh,bckhp->bcqhp", m, xs)
     del m
 
@@ -150,7 +157,10 @@ def ssm_forward(params: SSM, x: torch.Tensor, cfg: ModelConfig,
 
     in_decay = torch.exp(cum.clamp(-60.0, 0.0))           # decay from chunk start
     y_inter = torch.einsum("bcqn,bchpn->bcqhp", cmat, prev_states)
-    y_inter.mul_(in_decay[..., None])
+    if grad:
+        y_inter = y_inter * in_decay[..., None]
+    else:
+        y_inter.mul_(in_decay[..., None])
 
     y = (y_intra + y_inter).reshape(b, sp, h, p)[:, :s]
     y = y + xs.reshape(b, sp, h, p)[:, :s] * params.d_skip[None, None, :, None]

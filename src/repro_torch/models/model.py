@@ -22,13 +22,22 @@ scanned in pairs; encdec's `enc` and `dec`); here the layers are
 `nn.ModuleList`s in the order they run, in a Python loop (the decoder's
 in `layers`, so that the decode step keeps one loop;
 `interop.params_from_arrays` splits the L axes and interleaves the two
-MoE stacks). Its sharding constraints, remat and `models/flags.py` are
-compile-time concerns of XLA with no counterpart here.
+MoE stacks). `remat=True` runs each layer under
+`torch.utils.checkpoint.checkpoint`, the counterpart of the reference's
+`jax.checkpoint` over the layer scan (its "full" policy: a layer's
+activations are recomputed in backward, only its input is kept). Its
+sharding constraints and `models/flags.py`' probe flags are compile-time
+concerns of XLA with no counterpart here.
+
+Weights are frozen (`requires_grad=False`) as built, so serving builds no
+autograd graph; the train step turns gradients on for the model it
+trains (`train/train_step.py`).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -98,11 +107,14 @@ class SSMLayer(nn.Module):
         self.ln1 = L.zeros((cfg.d_model,), dt, device)
         self.ssm = M.init_ssm(cfg, dt, device, generator)
 
-    def forward(self, cfg: ModelConfig, x):
-        """(x + y, (state [B,H,P,N], conv tail [B, W-1, ch]))."""
+    def forward(self, cfg: ModelConfig, x, with_state: bool = False):
+        """(x + y, (state [B,H,P,N], conv tail [B, W-1, ch]) or None
+        without `with_state`)."""
         h = L.rms_norm(x, self.ln1, cfg.norm_eps)
-        y, st = M.ssm_forward(self.ssm, h, cfg, return_final_state=True)
-        return x + y, st
+        if with_state:
+            y, st = M.ssm_forward(self.ssm, h, cfg, return_final_state=True)
+            return x + y, st
+        return x + M.ssm_forward(self.ssm, h, cfg), None
 
 
 class HybridLayer(nn.Module):
@@ -118,11 +130,16 @@ class HybridLayer(nn.Module):
         self.ssm = M.init_ssm(cfg, dt, device, generator)
         self.mlp = L.MLP(d, cfg.d_ff, dt, device, generator)
 
-    def forward(self, cfg: ModelConfig, x, positions):
-        """(x, ((k, v), (state, conv tail)))."""
+    def forward(self, cfg: ModelConfig, x, positions,
+                with_state: bool = False):
+        """(x, ((k, v), (state, conv tail) or None without
+        `with_state`))."""
         h = L.rms_norm(x, self.ln1, cfg.norm_eps)
         a, kv = self.attn(h, positions, cfg, window=cfg.sliding_window)
-        y, st = M.ssm_forward(self.ssm, h, cfg, return_final_state=True)
+        if with_state:
+            y, st = M.ssm_forward(self.ssm, h, cfg, return_final_state=True)
+        else:
+            y, st = M.ssm_forward(self.ssm, h, cfg), None
         x = x + 0.5 * (a + y)
         h = L.rms_norm(x, self.ln2, cfg.norm_eps)
         return x + self.mlp(h), (kv, st)
@@ -190,6 +207,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return Model(cfg, device, generator)
 
 
+def param_shapes(cfg: ModelConfig) -> Model:
+    """The model on the `meta` device: every parameter's name, shape and
+    dtype, with no allocation (the reference's abstract init)."""
+    return Model(cfg, device="meta")
+
+
 def _stack(kvs):
     return (torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs]))
 
@@ -198,23 +221,35 @@ def _positions(s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None, :]
 
 
-def encode(cfg: ModelConfig, params: Model, enc_x: torch.Tensor):
+def _call(layer, remat: bool, *args, **kwargs):
+    """`layer(*args, **kwargs)`, under activation checkpointing when
+    `remat`: backward recomputes the layer from its input."""
+    if remat:
+        return checkpoint(layer, *args, use_reentrant=False, **kwargs)
+    return layer(*args, **kwargs)
+
+
+def encode(cfg: ModelConfig, params: Model, enc_x: torch.Tensor,
+           remat: bool = False):
     """The encdec encoder: its dense blocks, non-causal and global, over
     `enc_x` [B, S_enc, D] with its own positions, then `enc_norm`."""
     positions = _positions(enc_x.shape[1], enc_x.device)
     for lp in params.enc:
-        enc_x, _ = lp(cfg, enc_x, positions, window=0, causal=False)
+        enc_x, _ = _call(lp, remat, cfg, enc_x, positions, window=0,
+                         causal=False)
     return L.rms_norm(enc_x, params.enc_norm, cfg.norm_eps)
 
 
-def forward_hidden(cfg: ModelConfig, params: Model, inputs: dict):
+def forward_hidden(cfg: ModelConfig, params: Model, inputs: dict, *,
+                   collect_cache: bool = False, remat: bool = False):
     """Full-sequence forward up to the final norm (pre-unembed).
 
-    Returns (hidden [B,S,D], caches). inputs: tokens [B,S] int, or embeds
-    [B,S,D] (the frontend stub; bf16 from the serving launcher whatever
-    the model's dtype); encdec also takes enc_embeds [B,S_enc,D]. Caches as
-    the JAX package's scan returns them with `collect_cache=True`, each
-    stacked on a leading layer axis:
+    Returns (hidden [B,S,D], caches or None). inputs: tokens [B,S] int, or
+    embeds [B,S,D] (the frontend stub; bf16 from the serving launcher
+    whatever the model's dtype); encdec also takes enc_embeds
+    [B,S_enc,D]. `remat` runs each layer (the encoder's too) under
+    activation checkpointing. With `collect_cache` the caches, as the JAX
+    package's scan returns them, each stacked on a leading layer axis:
       dense, moe       (k, v), each [L, B, S, K, h];
       alt_local_global (local (k, v), global (k, v)), [L/2, ...] each;
       alt_dense_moe    (dense (k, v), moe (k, v)), [L/2, ...] each;
@@ -222,6 +257,7 @@ def forward_hidden(cfg: ModelConfig, params: Model, inputs: dict):
                         [L, B, W-1, ch]);
       hybrid           ((k, v), (state, conv tail));
       encdec           ((k, v) self, (mk, mv) cross [L, B, S_enc, K, h]).
+    Without it no layer's cache outlives its layer.
     """
     if "embeds" in inputs:
         x = inputs["embeds"]
@@ -229,25 +265,28 @@ def forward_hidden(cfg: ModelConfig, params: Model, inputs: dict):
         x = params.embed.embed(inputs["tokens"])
     positions = _positions(x.shape[1], x.device)
     if cfg.family == "encdec":
-        memory = encode(cfg, params, inputs["enc_embeds"])
+        memory = encode(cfg, params, inputs["enc_embeds"], remat)
     kvs, states, cross = [], [], []
     for i, lp in enumerate(params.layers):
         kind = layer_kind(cfg, i)
+        kv = st = mkv = None
         if kind == "ssm":
-            x, st = lp(cfg, x)
-            states.append(st)
+            x, st = _call(lp, remat, cfg, x, with_state=collect_cache)
         elif kind == "hybrid":
-            x, (kv, st) = lp(cfg, x, positions)
-            kvs.append(kv)
-            states.append(st)
+            x, (kv, st) = _call(lp, remat, cfg, x, positions,
+                                with_state=collect_cache)
         elif kind == "encdec":
-            x, (kv, mkv) = lp(cfg, x, positions, memory)
-            kvs.append(kv)
-            cross.append(mkv)
+            x, (kv, mkv) = _call(lp, remat, cfg, x, positions, memory)
         else:
-            x, kv = lp(cfg, x, positions, window=layer_window(cfg, i))
-            kvs.append(kv)
+            x, kv = _call(lp, remat, cfg, x, positions,
+                          window=layer_window(cfg, i))
+        if collect_cache:
+            for kept, c in ((kvs, kv), (states, st), (cross, mkv)):
+                if c is not None:
+                    kept.append(c)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
+    if not collect_cache:
+        return x, None
     if cfg.family == "ssm":
         return x, _stack(states)
     if cfg.family == "hybrid":
@@ -259,8 +298,46 @@ def forward_hidden(cfg: ModelConfig, params: Model, inputs: dict):
     return x, _stack(kvs)
 
 
-def forward(cfg: ModelConfig, params: Model, inputs: dict):
+def forward(cfg: ModelConfig, params: Model, inputs: dict, *,
+            collect_cache: bool = False):
     """Full logits [B, S, V] (fp32) and the caches (tests and small-scale
-    use; the serving path unembeds only the last position)."""
-    x, caches = forward_hidden(cfg, params, inputs)
+    use; the serving path unembeds only the last position, the loss a
+    chunk at a time)."""
+    x, caches = forward_hidden(cfg, params, inputs,
+                               collect_cache=collect_cache)
     return params.embed.logits(x, cfg), caches
+
+
+def _chunk_nll(embed: L.Embedding, x: torch.Tensor, labels: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """Summed next-token cross-entropy of one chunk x [B, c, D] against
+    labels [B, c], through its fp32 logits [B, c, V]."""
+    logits = embed.logits(x, cfg)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.sum(lse - gold)
+
+
+def loss_fn(cfg: ModelConfig, params: Model, batch: dict,
+            loss_chunk: int = 512) -> torch.Tensor:
+    """Mean next-token cross-entropy (labels are pre-shifted), fp32.
+
+    Every layer runs under activation checkpointing, as the reference's
+    forward does. The unembedding and softmax-CE run in `loss_chunk`-long
+    sequence chunks, each checkpointed too, so the [B, S, V] logits are
+    never held: the peak is one chunk's [B, c, V], in backward too. A
+    chunk length that does not divide S becomes S (one chunk), as in the
+    reference.
+    """
+    x, _ = forward_hidden(cfg, params, batch, remat=True)
+    labels = batch["labels"]
+    b, s, _ = x.shape
+    c = min(loss_chunk, s)
+    if s % c:
+        c = s
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, c):
+        total = total + checkpoint(_chunk_nll, params.embed, x[:, c0:c0 + c],
+                                   labels[:, c0:c0 + c], cfg,
+                                   use_reentrant=False)
+    return total / (b * s)

@@ -1,1 +1,2 @@
-"""Serving steps of the LLM path: prefill and greedy decode."""
+"""The LLM path's steps: training (loss, AdamW, the train step) and
+serving (prefill and greedy decode)."""

@@ -146,7 +146,8 @@ def run(request):
 
 def test_forward_hidden_matches_jax(run):
     jh, jcaches = run.jhidden(run.jparams, run.jinputs())
-    th, tcaches = M.forward_hidden(run.cfg, run.params, run.tinputs())
+    th, tcaches = M.forward_hidden(run.cfg, run.params, run.tinputs(),
+                                   collect_cache=True)
     assert th.shape == (B, PROMPT, run.cfg.d_model)
     assert str(th.dtype).removeprefix("torch.") == str(jh.dtype)
     _close(th, jh, run.dtype)

@@ -7,13 +7,17 @@
   the gather formulation), `BFSServer` queries (batched and streamed), a
   session that records its plans in an artifact cache and one that
   pre-warms them, the LLM serving entry point at smoke size for every
-  family and both frontend stubs, and the quickstart example;
-* `Engine(g)`, `BFSServer`, the serving entry point and both BFS examples
-  with no device ask for CUDA and raise without it, a partitioned query and `parallel.ranks`
-  too (a rank's device is never a quiet CPU);
-* the BFS path (and the interop module) does not import the LLM serving
-  modules (the port's counterpart of the JAX package's DC001 quarantine),
-  and the serving path does not import the BFS engine;
+  family and both frontend stubs, two training steps of the launcher with
+  a checkpoint written and restored (`ml_dtypes` blocked too: bf16 leaves
+  are stored as their bits), and the quickstart example;
+* `Engine(g)`, `BFSServer`, the serving and training entry points and
+  both BFS examples with no device ask for CUDA and raise without it, a
+  partitioned query and `parallel.ranks` too (a rank's device is never a
+  quiet CPU);
+* the BFS path (and the interop module) does not import the LLM modules
+  (serving, training, data, checkpoints: the port's counterpart of the
+  JAX package's DC001 quarantine), and neither the serving nor the
+  training path imports the BFS engine;
 * on the card (`cuda`-marked, skipped elsewhere): P = 2 gloo ranks share
   the GPU, and their partitioned searches equal the same ranks' CPU
   searches.
@@ -62,7 +66,7 @@ REPO = pathlib.Path(sys.argv[1])
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"):
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -108,6 +112,23 @@ for arch in ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
     toks = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                        "--batch", "2", "--prompt-len", "20", "--gen", "2"])
     assert toks.shape == (2, 2), (arch, toks.shape)
+import torch
+from repro_torch.checkpoint import checkpoint as CKPT
+from repro_torch.launch import train
+with tempfile.TemporaryDirectory() as d:
+    losses = train.main(["--arch", "qwen3-moe-235b-a22b", "--smoke",
+                         "--steps", "2", "--batch", "2", "--seq", "16",
+                         "--ckpt", d, "--ckpt-every", "2", "--device", "cpu"])
+    assert len(losses) == 2, losses
+    run = train.train(train.smoke_config("qwen3-moe-235b-a22b"), steps=2,
+                      batch=2, seq=16, device=torch.device("cpu"), ckpt=d,
+                      log=print)
+    assert run.start_step == 2 and run.losses == []
+    (params, state), step, meta = CKPT.restore(d, (run.params,
+                                                   run.opt_state))
+    assert step == 2 and meta["arch"] == "qwen3-moe-smoke", meta
+    assert params.embed.table.dtype == torch.bfloat16
+    assert int(state["step"]) == 2
 import runpy
 quick = runpy.run_path(str(REPO / "examples" / "quickstart_torch.py"))
 assert quick["main"](tiny=True, device="cpu")
@@ -126,6 +147,8 @@ def test_port_runs_with_jax_and_repro_blocked():
     for name in ("gemma2-9b", "qwen3-moe", "llama4-maverick", "mamba2-2.7b",
                  "hymba-1.5b"):
         assert f"[serve] {name}-smoke on cpu" in out.stdout, name
+    assert "[train] step=1 " in out.stdout
+    assert "[train] resumed from step 2" in out.stdout
     assert "parent tree VALID" in out.stdout
 
 
@@ -225,6 +248,17 @@ def test_serve_without_device_needs_cuda(monkeypatch):
             serve.main(["--arch", arch, "--smoke", "--device", "cuda"])
 
 
+def test_train_without_device_needs_cuda(monkeypatch):
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for arch in ("stablelm-3b", "mamba2-2-7b", "seamless-m4t-medium"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train.main(["--arch", arch, "--smoke", "--steps", "1"])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train.main(["--arch", arch, "--smoke", "--steps", "1",
+                        "--device", "cuda"])
+
+
 def _example(name):
     spec = importlib.util.spec_from_file_location(
         name, REPO / "examples" / f"{name}.py")
@@ -254,13 +288,14 @@ import repro_torch.interop, repro_torch.core.hybrid_bfs
 import repro_torch.parallel.collectives, repro_torch.parallel.ranks
 loaded = sorted(m for m in sys.modules if m.startswith((
     "repro_torch.models", "repro_torch.configs", "repro_torch.train",
-    "repro_torch.launch", "repro_torch.kernels.decode_attn")))
+    "repro_torch.launch", "repro_torch.kernels.decode_attn",
+    "repro_torch.data", "repro_torch.checkpoint", "repro_torch.ft")))
 print(loaded)
 """
 
 SERVE_QUARANTINE_RUN = r"""
 import sys
-import repro_torch.launch.serve
+import repro_torch.launch.serve, repro_torch.launch.train
 print(sorted(m for m in sys.modules if m.startswith((
     "repro_torch.engine", "repro_torch.core.bfs"))))
 """
