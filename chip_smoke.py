@@ -215,7 +215,29 @@ a nonzero exit; nothing is caught):
    smoke size on the card, 4 steps with a checkpoint every 2 into a
    directory under build/, then again to 6: it resumes from step 4, and
    steps 4-5 give an uninterrupted 6-step run's losses within 1e-6.
-8. One JSON line listing the kernels, then the result line.
+8. Expert parallelism (no kernel on this path): qwen3-moe-235b-a22b's MoE
+   layer at every published width (d 4,096, 128 experts, top-8,
+   moe_d_ff 1,536) through `models.moe.moe_ffn_a2a` on P = 4 gloo ranks
+   sharing the card, a 2 x 2 (data, model) mesh
+   (`launch.mesh.make_debug_mesh`); each rank draws only its own weight
+   shards (experts on `model`, d_model on `data`, per-expert seeds),
+   all-gathers them over `data` (through the host: gloo's functional
+   all-gather crashes its rank on a CUDA tensor) and sends its tokens to
+   the experts' owners and back with two all-to-alls. 8a: fp32, batch
+   2 x 512, capacity factor 8 (nothing drops): forward and backward; the
+   ranks' blocks of y and every gradient against `moe_ffn` on the card
+   with the same draws, run after the ranks exit (y and x's gradient
+   within rtol = atol = 2e-5, the weights' within 1e-4, all finite). 8b:
+   bf16 at the config's capacity factor 1.25, batch 2 x 4,096: the median
+   seconds of a forward and backward (2 steps, after 8a; a step ends with
+   its slowest rank), each all-to-all's bytes a rank, the weights gathered
+   a rank, the share of the dispatch that capacity drops on each rank,
+   each rank's peak memory. A record, not a claim: the ranks share one
+   card and exchange through the host. The first step's blocks of y and
+   x's gradient are held against `moe_ffn` on the card run on each rank's
+   own tokens, which takes that rank's capacity and drops what it drops
+   (within rtol = atol = 2e-2, bf16).
+9. One JSON line listing the kernels, then the result line.
 
 `--out FILE` also writes the full record (timings, shapes, profiles) as
 JSON.
@@ -307,6 +329,20 @@ TRAIN_FULL = dict(arch="stablelm-3b", batch=4, seq=4096, accum=2, steps=4)
 # Phase 7c: the launcher's restart at smoke size
 TRAIN_RESTART = dict(arch="stablelm-3b", batch=2, seq=32, first=4, total=6,
                      every=2)
+# Phase 8: qwen3-moe-235b-a22b's MoE layer at every published width
+# through `moe_ffn_a2a` on P = 4 gloo ranks sharing the card, a 2 x 2
+# (data, model) mesh. 8a: fp32, capacity factor 8 (nothing drops, so the
+# ranks' local capacity gives `moe_ffn`'s result); 8b: bf16 at the
+# config's capacity factor, timed, and its first step held against
+# `moe_ffn` on each rank's own tokens.
+MOE_ARCH = "qwen3-moe-235b-a22b"
+MOE_MESH = (2, 2)
+MOE_EQUAL = dict(batch=2, seq=512, capacity_factor=8.0)
+MOE_TIMED = dict(batch=2, seq=4096, reps=2)
+MOE_TOL = dict(rtol=2e-5, atol=2e-5)        # y and x's gradient
+MOE_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)   # the weights' gradients
+MOE_BF16_TOL = dict(rtol=2e-2, atol=2e-2)   # 8b: y and x's gradient
+MOE_WEIGHTS = ("router", "wg", "wi", "wo")
 BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 # device ops that are matrix products, by a part of their kernel's name
 MATMUL_KEYS = ("gemm", "matmul", "cutlass", "xmma", "cublas", "nvjet")
@@ -3189,6 +3225,326 @@ def train_restart_phase(args, dev, record):
 
 # ------------------------------------------------------------------ main --
 
+# ------------------------------------------------------- expert parallel --
+
+def moe_expert(seed: int, name: str, e: int, cfg, dev):
+    """Expert e's fp32 [D, F] (wg, wi) or [F, D] (wo), or the [D, E]
+    router for e = -1, each from its own seed: a rank draws only its own
+    experts, the parent all of them, with the same values."""
+    import torch
+    d, f = cfg.d_model, cfg.moe_d_ff
+    j = MOE_WEIGHTS.index(name)
+    g = torch.Generator(device=dev).manual_seed(seed * 1_000_003 + 4 * e + j)
+    if name == "router":
+        shape, std = (d, cfg.n_experts), d ** -0.5
+    else:
+        shape, std = ((f, d), f ** -0.5) if name == "wo" else ((d, f),
+                                                              d ** -0.5)
+    return torch.randn(shape, generator=g, device=dev).mul_(std)
+
+
+def moe_block(seed: int, name: str, cfg, dev, dtype, experts, rows):
+    """Weight `name` for `experts`, its D dim cut to `rows` (dim 1 of wg
+    and wi, dim 2 of wo, dim 0 of the router, which stays fp32), in
+    `dtype`."""
+    import torch
+    if name == "router":
+        return moe_expert(seed, name, -1, cfg, dev)[rows]
+    out = [moe_expert(seed, name, e, cfg, dev) for e in experts]
+    out = [w[:, rows] if name == "wo" else w[rows] for w in out]
+    return torch.stack(out).to(dtype)
+
+
+def moe_inputs(seed: int, cfg, b: int, s: int, dev, dtype):
+    """x and the cotangent r [B, S, D] of a run, from the seed."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed * 7 + s)
+    x = torch.randn((b, s, cfg.d_model), generator=g, device=dev)
+    r = torch.randn((b, s, cfg.d_model), generator=g, device=dev)
+    return x.to(dtype), r.to(dtype)
+
+
+def moe_rank_layer(seed: int, cfg, mesh, dev, dtype, b: int, s: int):
+    """This rank's MoE layer (its weight shards as DTensors that require
+    grad) and x, r as DTensors of their spec; the rules."""
+    import torch
+    from repro_torch.models import moe as MOE
+    from repro_torch.parallel import sharding as SH
+    from torch.distributed.tensor import DTensor
+    rules = SH.AxisRules(batch_axes=("data",), fsdp_axes=("data",))
+    di, mi = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+    e_loc = cfg.n_experts // mesh.size(1)
+    d_loc = cfg.d_model // mesh.size(0)
+    experts = range(mi * e_loc, (mi + 1) * e_loc)
+    rows = slice(di * d_loc, (di + 1) * d_loc)
+    shapes = {"router": (cfg.d_model, cfg.n_experts),
+              "wg": (cfg.n_experts, cfg.d_model, cfg.moe_d_ff),
+              "wi": (cfg.n_experts, cfg.d_model, cfg.moe_d_ff),
+              "wo": (cfg.n_experts, cfg.moe_d_ff, cfg.d_model)}
+    specs = SH.param_specs(cfg, shapes, mesh, rules)
+    # The router comes replicated, as `moe_ffn_a2a` takes it: DTensor would
+    # gather an fsdp-sharded one through gloo's functional all-gather,
+    # which crashes on a CUDA tensor.
+    specs["router"] = (None, None)
+    layer = MOE.init_moe(cfg, dtype, device="meta")
+    for name in MOE_WEIGHTS:
+        local = moe_block(seed, name, cfg, dev, dtype, experts,
+                          slice(None) if name == "router" else rows)
+        setattr(layer, name, torch.nn.Parameter(DTensor.from_local(
+            local, mesh, SH.placements(specs[name], mesh), run_check=False,
+            shape=shapes[name], stride=torch.empty(
+                shapes[name], device="meta").stride())))
+    x, r = moe_inputs(seed, cfg, b, s, dev, dtype)
+    xs = ("data", "model", None)
+    xd = SH.distribute(x, mesh, xs).requires_grad_(True)
+    return layer, xd, SH.distribute(r, mesh, xs), rules
+
+
+def moe_rank(rank, group, device, seed, tmp):
+    """Phase 8 on one rank: 8a's output and gradient blocks, saved to
+    `tmp` (rank<r>.npz), and 8b's step seconds, all-to-all bytes and drop
+    share; the seconds of each part."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.models import moe as MOE
+    from repro_torch.parallel import sharding as SH
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = MESH.make_debug_mesh(*MOE_MESH, device_type=device.type)
+    out = {"coords": (mesh.get_local_rank("data"),
+                      mesh.get_local_rank("model"))}
+    # 8a: equality, fp32, nothing dropped
+    cfg = dataclasses.replace(get_config(MOE_ARCH), dtype="float32",
+                              capacity_factor=MOE_EQUAL["capacity_factor"])
+    t0 = time.perf_counter()
+    layer, xd, rd, rules = moe_rank_layer(
+        seed, cfg, mesh, device, torch.float32, MOE_EQUAL["batch"],
+        MOE_EQUAL["seq"])
+    sync()
+    t1 = time.perf_counter()
+    with SH.activate(mesh, rules):
+        y = MOE.moe_ffn_a2a(layer, xd, cfg)
+    sync()
+    t2 = time.perf_counter()
+    (y * rd).sum().backward()
+    sync()
+    t3 = time.perf_counter()
+    blocks = {"y": y.to_local().detach(), "x": xd.grad.to_local()}
+    for name in MOE_WEIGHTS:
+        g = getattr(layer, name).grad
+        blocks[name] = g.full_tensor() if name == "router" else g.to_local()
+    out["path"] = os.path.join(tmp, f"rank{rank}")
+    for k, v in blocks.items():
+        np.save(f"{out['path']}.{k}.npy", v.cpu().numpy())
+    out["equal_s"] = dict(layer=t1 - t0, forward=t2 - t1, backward=t3 - t2,
+                          save=time.perf_counter() - t3)
+    del layer, xd, rd, y, g, blocks
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    # 8b: timing, bf16, the config's capacity factor
+    cfg = get_config(MOE_ARCH)
+    b, s = MOE_TIMED["batch"], MOE_TIMED["seq"]
+    layer, xd, rd, rules = moe_rank_layer(seed, cfg, mesh, device,
+                                          torch.bfloat16, b, s)
+    t_loc = xd.to_local().shape[0] * xd.to_local().shape[1]
+    cap = int(cfg.capacity_factor * t_loc * cfg.top_k / cfg.n_experts) + 1
+    keep = MOE._route(layer.router.to_local(),
+                      xd.to_local().reshape(t_loc, -1), cfg, cap)[-1]
+    out["drop_share"] = 1.0 - float(keep.float().mean())
+    out["a2a_bytes"] = cfg.n_experts * cap * cfg.d_model * 2
+    out["cap"] = cap
+    times = []
+    for rep in range(MOE_TIMED["reps"]):
+        for p in (*layer.parameters(), xd):
+            p.grad = None
+        sync()
+        t0 = time.perf_counter()
+        with SH.activate(mesh, rules):
+            y = MOE.moe_ffn_a2a(layer, xd, cfg)
+        (y * rd).sum().backward()
+        sync()
+        times.append(time.perf_counter() - t0)
+        if rep == 0:        # the first step's blocks, for the drop check
+            for k, v in (("y", y.to_local().detach()),
+                         ("x", xd.grad.to_local())):
+                np.save(f"{out['path']}.timed.{k}.npy",
+                        v.float().cpu().numpy())
+        del y
+    out["step_s"] = times
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
+                         if device.type == "cuda" else 0)
+    return out
+
+
+def moe_drop_check(args, dev, outs) -> dict:
+    """8b's first step against `moe_ffn` on the card, run on each rank's
+    own tokens with the same bf16 draws: `moe_ffn` then takes the capacity
+    of the rank's token count and drops what the rank drops, so y and x's
+    gradient blocks must agree within MOE_BF16_TOL (the expert products
+    run at other shapes, and the combine sums in bf16). The max |err| of
+    each."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe as MOE
+    cfg = get_config(MOE_ARCH)
+    b, s = MOE_TIMED["batch"], MOE_TIMED["seq"]
+    layer = MOE.init_moe(cfg, torch.bfloat16, device="meta")
+    for name in MOE_WEIGHTS:
+        setattr(layer, name, torch.nn.Parameter(moe_block(
+            args.seed, name, cfg, dev, torch.bfloat16,
+            range(cfg.n_experts), slice(None)), requires_grad=False))
+    x, r = moe_inputs(args.seed, cfg, b, s, dev, torch.bfloat16)
+    b_loc, s_loc = b // MOE_MESH[0], s // MOE_MESH[1]
+    errs = {}
+    for o in outs:
+        di, mi = o["coords"]
+        tok = (slice(di * b_loc, (di + 1) * b_loc),
+               slice(mi * s_loc, (mi + 1) * s_loc))
+        xb = x[tok].clone().requires_grad_(True)
+        y = MOE.moe_ffn(layer, xb, cfg)
+        (y * r[tok]).sum().backward()
+        for key, ref in (("y", y.detach()), ("x", xb.grad)):
+            ref = ref.float()
+            got = torch.from_numpy(np.load(
+                f"{o['path']}.timed.{key}.npy")).to(dev)
+            err = (got - ref).abs()
+            assert bool(torch.isfinite(got).all()), \
+                f"phase 8b: {key} not finite on rank {di, mi}"
+            assert bool((err <= MOE_BF16_TOL["atol"] + MOE_BF16_TOL["rtol"]
+                         * ref.abs()).all()), (
+                f"phase 8b: {key} on rank {di, mi} against moe_ffn on its "
+                f"own tokens: max |err| {float(err.max())}")
+            errs[key] = max(errs.get(key, 0.0), float(err.max()))
+    del layer, x, r, xb, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return errs
+
+
+def moe_phase(args, dev, record):
+    """Phase 8: `moe_ffn_a2a` at qwen3-moe's full width on P = 4 gloo
+    ranks sharing the card (8a equal to `moe_ffn` run on the card after
+    the ranks exit, 8b timed)."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe as MOE
+    from repro_torch.parallel import ranks
+    n = MOE_MESH[0] * MOE_MESH[1]
+    rec = record["moe_a2a"] = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
+        outs = ranks.run_ranks(moe_rank, n, tmp, args=(args.seed, tmp),
+                               backend="gloo", device=dev.type,
+                               timeout=RANK_TIMEOUT)
+        rec["ranks_s"] = time.perf_counter() - t0
+        # 8a: moe_ffn on the card, all experts, the same draws
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(
+            get_config(MOE_ARCH), dtype="float32",
+            capacity_factor=MOE_EQUAL["capacity_factor"])
+        b, s = MOE_EQUAL["batch"], MOE_EQUAL["seq"]
+        layer = MOE.init_moe(cfg, torch.float32, device="meta")
+        for name in MOE_WEIGHTS:
+            setattr(layer, name, torch.nn.Parameter(moe_block(
+                args.seed, name, cfg, dev, torch.float32,
+                range(cfg.n_experts), slice(None))))
+        x, r = moe_inputs(args.seed, cfg, b, s, dev, torch.float32)
+        x.requires_grad_(True)
+        y = MOE.moe_ffn(layer, x, cfg)
+        (y * r).sum().backward()
+        want = {"y": y.detach(), "x": x.grad,
+                **{k: getattr(layer, k).grad for k in MOE_WEIGHTS}}
+        del layer, x, r, y
+        e_loc = cfg.n_experts // MOE_MESH[1]
+        d_loc = cfg.d_model // MOE_MESH[0]
+        b_loc, s_loc = b // MOE_MESH[0], s // MOE_MESH[1]
+        errs = {}
+        for o in outs:
+            di, mi = o["coords"]
+            ex = slice(mi * e_loc, (mi + 1) * e_loc)
+            rows = slice(di * d_loc, (di + 1) * d_loc)
+            tok = (slice(di * b_loc, (di + 1) * b_loc),
+                   slice(mi * s_loc, (mi + 1) * s_loc))
+            refs = {"y": want["y"][tok], "x": want["x"][tok],
+                    "router": want["router"], "wg": want["wg"][ex, rows],
+                    "wi": want["wi"][ex, rows],
+                    "wo": want["wo"][ex, :, rows]}
+            for key, ref in refs.items():
+                g = torch.from_numpy(np.load(f"{o['path']}.{key}.npy",
+                                             mmap_mode="r")).to(dev)
+                tol = MOE_TOL if key in ("y", "x") else MOE_GRAD_TOL
+                err = (g - ref).abs()
+                assert bool(torch.isfinite(g).all()), \
+                    f"phase 8a: {key} not finite on rank {di, mi}"
+                assert bool((err <= tol["atol"] + tol["rtol"] *
+                             ref.abs()).all()), (
+                    f"phase 8a: {key} on rank {di, mi}: max |err| "
+                    f"{float(err.max())}")
+                errs[key] = max(errs.get(key, 0.0), float(err.max()))
+        del want
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["check_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        drop_errs = moe_drop_check(args, dev, outs)
+        rec["drop_check_s"] = time.perf_counter() - t0
+    rec["equal"] = dict(max_abs_err=errs, rank_s=[o["equal_s"]
+                                                   for o in outs],
+                        batch=b, seq=s, dtype="float32",
+                        capacity_factor=cfg.capacity_factor)
+    log(f"phase 8a: {MOE_ARCH}'s MoE layer (d {cfg.d_model}, "
+        f"{cfg.n_experts} experts, top-{cfg.top_k}, moe_d_ff "
+        f"{cfg.moe_d_ff}), fp32, batch {b} x {s}, forward and backward "
+        f"through moe_ffn_a2a on {n} gloo ranks sharing the card "
+        f"({MOE_MESH[0]} x {MOE_MESH[1]} data x model) equal moe_ffn on the "
+        f"card: max |err| " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                        errs.items())
+        + f" (y and x's gradient within {MOE_TOL['rtol']}, the weights' "
+        f"within {MOE_GRAD_TOL['rtol']}); rank 0: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in outs[0]["equal_s"].items())
+        + f"; ranks {rec['ranks_s']:.1f} s, check {rec['check_s']:.1f} s")
+    # 8b: the timed bf16 steps (8a warmed each rank's collectives and
+    # products up); a step ends when its slowest rank does
+    cfg = get_config(MOE_ARCH)
+    steps = [max(o["step_s"][i] for o in outs)
+             for i in range(MOE_TIMED["reps"])]
+    e_loc = cfg.n_experts // MOE_MESH[1]
+    gathered = 3 * e_loc * cfg.d_model * cfg.moe_d_ff * 2
+    timed = rec["timed"] = dict(
+        batch=MOE_TIMED["batch"], seq=MOE_TIMED["seq"], dtype="bfloat16",
+        capacity_factor=cfg.capacity_factor, capacity=outs[0]["cap"],
+        step_s=steps, step_s_median=float(np.median(steps)),
+        a2a_bytes_per_rank=outs[0]["a2a_bytes"], a2a_per_step=4,
+        weight_gather_bytes_per_rank=gathered,
+        drop_share=[o["drop_share"] for o in outs],
+        max_abs_err_vs_local_moe_ffn=drop_errs,
+        peak_bytes=[o["peak_bytes"] for o in outs], card=record["card"],
+        note="gloo ranks sharing one card: the all-to-alls and the "
+             "host-staged weight all-gathers go through the host")
+    log(f"phase 8b: the same layer in bf16 at capacity factor "
+        f"{cfg.capacity_factor} (capacity {timed['capacity']} a rank), "
+        f"batch {timed['batch']} x {timed['seq']}: forward and backward "
+        f"median {timed['step_s_median']:.3f} s over {len(steps)} steps "
+        f"({', '.join(f'{t:.3f}' for t in steps)}); each all-to-all "
+        f"{timed['a2a_bytes_per_rank']} B a rank (4 a step), weights "
+        f"gathered {gathered} B a rank; capacity drops "
+        + ", ".join(f"{d:.4f}" for d in timed["drop_share"])
+        + " of the dispatch by rank; the first step equal to moe_ffn on "
+        f"each rank's own tokens (its capacity, its drops): max |err| y "
+        f"{drop_errs['y']:.3g}, x's gradient {drop_errs['x']:.3g} (within "
+        f"{MOE_BF16_TOL['rtol']}); peak "
+        f"{max(timed['peak_bytes']) / 2**30:.2f} GiB a rank "
+        f"[{record['card']}; {n} gloo ranks on one card, a record, not a "
+        f"claim]")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3310,6 +3666,13 @@ def main() -> int:
     train_restart_phase(args, dev, record)
     record["train_s"] = time.perf_counter() - t0
     log(f"phase 7: {record['train_s']:.1f} s")
+
+    # 8. qwen3-moe's expert-parallel MoE layer on gloo ranks sharing the
+    # card
+    t0 = time.perf_counter()
+    moe_phase(args, dev, record)
+    record["moe_s"] = time.perf_counter() - t0
+    log(f"phase 8: {record['moe_s']:.1f} s")
     record["total_s"] = time.perf_counter() - t_start
     log(f"total {record['total_s']:.1f} s")
     if args.out:
@@ -3317,7 +3680,7 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
 
-    # 8. the kernels line, then the result line
+    # 9. the kernels line, then the result line
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

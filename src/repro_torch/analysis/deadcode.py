@@ -42,6 +42,8 @@ BFS_ENTRYPOINTS: Tuple[str, ...] = (
 TEMPLATE_ENTRYPOINTS: Tuple[str, ...] = (
     "repro_torch.launch.serve",
     "repro_torch.launch.train",
+    "repro_torch.launch.dryrun",
+    "repro_torch.launch.mesh",
 )
 
 # Modules (by prefix) that belong to the LLM-serving template and must never
@@ -56,6 +58,8 @@ QUARANTINE_PREFIXES: Tuple[str, ...] = (
     "repro_torch.kernels.decode_attn",
     "repro_torch.launch.serve",
     "repro_torch.launch.train",
+    "repro_torch.launch.dryrun",
+    "repro_torch.launch.mesh",
 )
 
 

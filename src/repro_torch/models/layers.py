@@ -23,6 +23,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import flags
 
 NEG_INF = -1e30
 
@@ -71,8 +72,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     `window` > 0 restricts to keys within `window` positions (local layers).
     Queries and keys start at position 0. A key block that no query of the
     chunk may see is skipped: its probabilities are 0 and it would leave
-    (max, sum, acc) as they are.
+    (max, sum, acc) as they are. `flags.FLASH_CHUNK`, when set, is both
+    block lengths.
     """
+    if flags.FLASH_CHUNK:
+        q_chunk = k_chunk = flags.FLASH_CHUNK
     b, sq, hq, hd = q.shape
     sk, hk = k.shape[1], k.shape[2]
     g = hq // hk
@@ -80,7 +84,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dev = q.device
     qf = q.float().reshape(b, sq, hk, g, hd)
     kf, vf = k.float(), v.float()
-    out = torch.empty((b, sq, hk, g, hd), dtype=torch.float32, device=dev)
+    outs = []
     for q0 in range(0, sq, q_chunk):
         q1 = min(q0 + q_chunk, sq)
         q_pos = torch.arange(q0, q1, device=dev)
@@ -111,9 +115,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             acc = acc * corr[..., None] + torch.einsum(
                 "bkgqs,bskh->bkgqh", p, vf[:, k0:k1])
             m = m_new
-        out[:, q0:q1] = (acc / l.clamp_min(1e-30)[..., None]).permute(
-            0, 3, 1, 2, 4)
-    return out.reshape(b, sq, hq, hd).to(q.dtype)
+        outs.append((acc / l.clamp_min(1e-30)[..., None]).permute(
+            0, 3, 1, 2, 4))
+    return torch.cat(outs, dim=1).reshape(b, sq, hq, hd).to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -174,6 +178,11 @@ def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsd,dnh->bsnh", x.to(w.dtype), w)
 
 
+def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """[B, S, N, h] x [N, h, D] -> [B, S, D], in the weight's dtype."""
+    return torch.einsum("bsnh,nhd->bsd", o.to(wo.dtype), wo)
+
+
 class Attention(nn.Module):
     """wq [D, H, h], wk/wv [D, K, h], wo [H, h, D]."""
 
@@ -196,7 +205,7 @@ class Attention(nn.Module):
         return (project(x, self.wq), *self.kv(x))
 
     def out(self, o: torch.Tensor) -> torch.Tensor:
-        return torch.einsum("bsnh,nhd->bsd", o.to(self.wo.dtype), self.wo)
+        return _out(o, self.wo)
 
     def forward(self, x, positions, cfg: ModelConfig, *, causal: bool = True,
                 window: int = 0, kv=None):
@@ -225,9 +234,14 @@ class MLP(nn.Module):
         self.wo = weight((f, d), f ** -0.5, dtype, device, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.wg.dtype)
-        gate = F.silu(x @ self.wg)
-        return (gate * (x @ self.wi)) @ self.wo
+        return _mlp(x, self.wg, self.wi, self.wo)
+
+
+def _mlp(x, wg, wi, wo):
+    """SwiGLU [..., D] -> [..., D], in the weights' dtype."""
+    x = x.to(wg.dtype)
+    gate = F.silu(x @ wg)
+    return (gate * (x @ wi)) @ wo
 
 
 class Embedding(nn.Module):

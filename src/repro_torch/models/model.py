@@ -22,12 +22,19 @@ scanned in pairs; encdec's `enc` and `dec`); here the layers are
 `nn.ModuleList`s in the order they run, in a Python loop (the decoder's
 in `layers`, so that the decode step keeps one loop;
 `interop.params_from_arrays` splits the L axes and interleaves the two
-MoE stacks). `remat=True` runs each layer under
-`torch.utils.checkpoint.checkpoint`, the counterpart of the reference's
-`jax.checkpoint` over the layer scan (its "full" policy: a layer's
-activations are recomputed in backward, only its input is kept). Its
-sharding constraints and `models/flags.py`' probe flags are compile-time
-concerns of XLA with no counterpart here.
+MoE stacks). `remat=True` (the default, as in the reference) runs each
+layer under `torch.utils.checkpoint.checkpoint` while gradients are on,
+the counterpart of the reference's `jax.checkpoint` over the layer scan:
+`flags.REMAT_POLICY` "full" keeps only a layer's input, "dots" its
+unbatched matrix products too. Under `no_grad` (serving) there is nothing
+to recompute, as with `jax.checkpoint` outside differentiation.
+
+The activation constraints sit where the reference has them: the
+embedding on the batch axes, the carry after each scan body (a layer, or
+a pair under `alt_local_global` / `alt_dense_moe`) on batch and sequence,
+each CE chunk's logits (`parallel/sharding.py`). They act only on DTensors
+under an ambient mesh (`launch/dryrun.py`) and return their input itself
+otherwise.
 
 Weights are frozen (`requires_grad=False`) as built, so serving builds no
 autograd graph; the train step turns gradients on for the model it
@@ -40,9 +47,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import flags
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
+from repro_torch.parallel import sharding as SH
 
 def layer_kind(cfg: ModelConfig, i: int) -> str:
     """Layer i's block (of `Model.layers`, the decoder's under encdec):
@@ -95,7 +104,7 @@ class MoELayer(DenseLayer):
         self.moe = MOE.init_moe(cfg, dt, device, generator)
 
     def ffn(self, h, cfg: ModelConfig):
-        return MOE.moe_ffn(self.moe, h, cfg)
+        return MOE.moe_ffn_a2a(self.moe, h, cfg)
 
 
 class SSMLayer(nn.Module):
@@ -223,33 +232,52 @@ def _positions(s: int, device) -> torch.Tensor:
 
 def _call(layer, remat: bool, *args, **kwargs):
     """`layer(*args, **kwargs)`, under activation checkpointing when
-    `remat`: backward recomputes the layer from its input."""
-    if remat:
-        return checkpoint(layer, *args, use_reentrant=False, **kwargs)
+    `remat` and gradients are on: backward recomputes the layer from its
+    input (and what `flags.REMAT_POLICY` saves)."""
+    if remat and torch.is_grad_enabled():
+        ctx = flags.remat_context_fn()
+        extra = {} if ctx is None else {"context_fn": ctx}
+        return checkpoint(layer, *args, use_reentrant=False, **extra,
+                          **kwargs)
     return layer(*args, **kwargs)
 
 
+def _per_body(cfg: ModelConfig) -> int:
+    """Layers a scan body of the reference holds: 2 under
+    `alt_local_global` / `alt_dense_moe`, else 1."""
+    return 2 if cfg.alt_local_global or (cfg.family == "moe"
+                                         and cfg.alt_dense_moe) else 1
+
+
+def _carry(x):
+    """The carry between scan bodies: batch on the batch axes, sequence on
+    the sequence-parallel axis."""
+    return SH.constrain_spec(x, "batch", "seq", None)
+
+
 def encode(cfg: ModelConfig, params: Model, enc_x: torch.Tensor,
-           remat: bool = False):
+           remat: bool = True):
     """The encdec encoder: its dense blocks, non-causal and global, over
     `enc_x` [B, S_enc, D] with its own positions, then `enc_norm`."""
     positions = _positions(enc_x.shape[1], enc_x.device)
     for lp in params.enc:
         enc_x, _ = _call(lp, remat, cfg, enc_x, positions, window=0,
                          causal=False)
+        enc_x = _carry(enc_x)
     return L.rms_norm(enc_x, params.enc_norm, cfg.norm_eps)
 
 
 def forward_hidden(cfg: ModelConfig, params: Model, inputs: dict, *,
-                   collect_cache: bool = False, remat: bool = False):
+                   collect_cache: bool = False, remat: bool = True):
     """Full-sequence forward up to the final norm (pre-unembed).
 
     Returns (hidden [B,S,D], caches or None). inputs: tokens [B,S] int, or
     embeds [B,S,D] (the frontend stub; bf16 from the serving launcher
     whatever the model's dtype); encdec also takes enc_embeds
     [B,S_enc,D]. `remat` runs each layer (the encoder's too) under
-    activation checkpointing. With `collect_cache` the caches, as the JAX
-    package's scan returns them, each stacked on a leading layer axis:
+    activation checkpointing while gradients are on. With `collect_cache`
+    the caches, as the JAX package's scan returns them, each stacked on a
+    leading layer axis:
       dense, moe       (k, v), each [L, B, S, K, h];
       alt_local_global (local (k, v), global (k, v)), [L/2, ...] each;
       alt_dense_moe    (dense (k, v), moe (k, v)), [L/2, ...] each;
@@ -263,10 +291,12 @@ def forward_hidden(cfg: ModelConfig, params: Model, inputs: dict, *,
         x = inputs["embeds"]
     else:
         x = params.embed.embed(inputs["tokens"])
+    x = SH.constrain_batch(x)
     positions = _positions(x.shape[1], x.device)
     if cfg.family == "encdec":
         memory = encode(cfg, params, inputs["enc_embeds"], remat)
     kvs, states, cross = [], [], []
+    per = _per_body(cfg)
     for i, lp in enumerate(params.layers):
         kind = layer_kind(cfg, i)
         kv = st = mkv = None
@@ -280,6 +310,8 @@ def forward_hidden(cfg: ModelConfig, params: Model, inputs: dict, *,
         else:
             x, kv = _call(lp, remat, cfg, x, positions,
                           window=layer_window(cfg, i))
+        if (i + 1) % per == 0:
+            x = _carry(x)
         if collect_cache:
             for kept, c in ((kvs, kv), (states, st), (cross, mkv)):
                 if c is not None:
@@ -299,12 +331,12 @@ def forward_hidden(cfg: ModelConfig, params: Model, inputs: dict, *,
 
 
 def forward(cfg: ModelConfig, params: Model, inputs: dict, *,
-            collect_cache: bool = False):
+            collect_cache: bool = False, remat: bool = True):
     """Full logits [B, S, V] (fp32) and the caches (tests and small-scale
     use; the serving path unembeds only the last position, the loss a
     chunk at a time)."""
     x, caches = forward_hidden(cfg, params, inputs,
-                               collect_cache=collect_cache)
+                               collect_cache=collect_cache, remat=remat)
     return params.embed.logits(x, cfg), caches
 
 
@@ -312,10 +344,14 @@ def _chunk_nll(embed: L.Embedding, x: torch.Tensor, labels: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
     """Summed next-token cross-entropy of one chunk x [B, c, D] against
     labels [B, c], through its fp32 logits [B, c, V]."""
-    logits = embed.logits(x, cfg)
+    logits = SH.constrain_ce(embed.logits(x, cfg))
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return torch.sum(lse - gold)
+    return torch.sum(lse - _gold(logits, labels.long()))
+
+
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits[b, c, labels[b, c]]."""
+    return torch.gather(logits, -1, labels[..., None])[..., 0]
 
 
 def loss_fn(cfg: ModelConfig, params: Model, batch: dict,
@@ -324,15 +360,15 @@ def loss_fn(cfg: ModelConfig, params: Model, batch: dict,
 
     Every layer runs under activation checkpointing, as the reference's
     forward does. The unembedding and softmax-CE run in `loss_chunk`-long
-    sequence chunks, each checkpointed too, so the [B, S, V] logits are
-    never held: the peak is one chunk's [B, c, V], in backward too. A
-    chunk length that does not divide S becomes S (one chunk), as in the
-    reference.
+    sequence chunks (`flags.LOSS_CHUNK` when set), each checkpointed too,
+    so the [B, S, V] logits are never held: the peak is one chunk's
+    [B, c, V], in backward too. A chunk length that does not divide S
+    becomes S (one chunk), as in the reference.
     """
-    x, _ = forward_hidden(cfg, params, batch, remat=True)
+    x, _ = forward_hidden(cfg, params, batch)
     labels = batch["labels"]
     b, s, _ = x.shape
-    c = min(loss_chunk, s)
+    c = min(flags.LOSS_CHUNK or loss_chunk, s)
     if s % c:
         c = s
     total = torch.zeros((), dtype=torch.float32, device=x.device)

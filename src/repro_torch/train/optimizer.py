@@ -51,9 +51,8 @@ def init_opt_state(params: nn.Module, cfg: OptConfig) -> dict:
     named = list(params.named_parameters())
     device = named[0][1].device
 
-    def zeros():
-        return {n: torch.zeros(p.shape, dtype=mdt, device=p.device)
-                for n, p in named}
+    def zeros():     # like each parameter: a DTensor's moments shard alike
+        return {n: torch.zeros_like(p, dtype=mdt) for n, p in named}
     return {"m": zeros(), "v": zeros(),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 

@@ -9,7 +9,9 @@
   pre-warms them, the LLM serving entry point at smoke size for every
   family and both frontend stubs, two training steps of the launcher with
   a checkpoint written and restored (`ml_dtypes` blocked too: bf16 leaves
-  are stored as their bits), and the quickstart example;
+  are stored as their bits), the sharding specs on the fake multi-pod
+  mesh, a dry-run cell, the MoE layer through `moe_ffn_a2a`'s fallback,
+  and the quickstart example;
 * `Engine(g)`, `BFSServer`, the serving and training entry points and
   both BFS examples with no device ask for CUDA and raise without it, a
   partitioned query and `parallel.ranks` too (a rank's device is never a
@@ -129,6 +131,20 @@ with tempfile.TemporaryDirectory() as d:
     assert step == 2 and meta["arch"] == "qwen3-moe-smoke", meta
     assert params.embed.table.dtype == torch.bfloat16
     assert int(state["step"]) == 2
+from repro_torch.launch import dryrun, mesh as MESH
+from repro_torch.models import model as MODEL
+from repro_torch.parallel import sharding as SH
+assert dryrun.run_cell("stablelm-3b", "long_500k", False)["status"] == \
+    "skipped"
+with MESH.production_mesh(multi_pod=True) as m:
+    cfg = train.smoke_config("stablelm-3b")
+    shapes = {n: p.shape for n, p in
+              MODEL.param_shapes(cfg).named_parameters()}
+    assert SH.param_specs(cfg, shapes, m, SH.AxisRules())
+cfg = train.smoke_config("qwen3-moe-235b-a22b")
+lp = MODEL.init_params(cfg, torch.Generator().manual_seed(0)).layers[0]
+assert lp.ffn(torch.ones(1, 4, cfg.d_model, dtype=torch.bfloat16),
+              cfg).shape == (1, 4, cfg.d_model)
 import runpy
 quick = runpy.run_path(str(REPO / "examples" / "quickstart_torch.py"))
 assert quick["main"](tiny=True, device="cpu")
