@@ -41,11 +41,26 @@ a nonzero exit; nothing is caught):
    and bf16, cap 0 and 50, cache_len 1 (every split of S but the first
    empty), S and random (fp32 within 3e-5; bf16 within one bf16 step,
    rtol 2^-7, atol 1e-5); a second call on the same inputs gives the same
-   bits, and cache_len 0 gives exact zeros. Then each case with q scaled
+   bits, a third with the log-sum-exp gives the same output unrounded
+   and an lse within fp32 3e-5 of the plain one, and cache_len 0 gives
+   exact zeros and an lse of -inf. Then each case with q scaled
    by 30, so that scores reach the cap: the cap-50 output matches the
    plain one and is far from the kernel's own cap-0 output (standard
    normal scores sit where the cap changes them by about 1e-4, below any
    tolerance).
+2s. Sequence-split decode: gemma2-9b's long_500k attention at every
+   published width (batch 1, 524,288 positions, 8 KV heads, g 2, h 256,
+   bf16, soft cap 50; 4.3 GB of K and V drawn on the card from --seed)
+   cut into 16 sequence shards, as a `data` axis of 16 holds them: the
+   kernel with the lse on each shard, with the shard's own cache_len, and
+   `models.layers.combine_partials`, held against the kernel on the whole
+   cache (bf16: rtol 2^-7, atol 1e-5) with the whole cache valid, the
+   last shard part-filled, and shard 3 part-filled with the 12 after it
+   empty (zeros and -inf). At each of those, the kernel on the whole
+   cache and each shard's output and lse are also held against the plain
+   version on the same inputs (outputs bf16, lse fp32 3e-5). Both routes'
+   times (CUDA events) beside the bound (the cache's bytes over 3.35
+   TB/s) and the card. A record, not a claim; single process.
 3. Whole-search parity, `Engine(g, device="cuda")` against
    `Engine(g, device="cpu")` on RMAT scale 16: 8 roots batched and 2 in
    Graph500 mode, heuristics paper and beamer, unsplit and with
@@ -177,9 +192,9 @@ a nonzero exit; nothing is caught):
    just before and read just after (42 x 31); its calls at the first and
    last decode step on layers 0 (local) and 1 (global) are captured and
    held against the plain version (bf16, one step). Then the kernel's time at
-   that shape (cap 50 and cap 0) with its split count, achieved GB/s and
-   share of the bound, its plain version's time, one
-   `F.scaled_dot_product_attention` call at cap 0 as the library
+   that shape (cap 50 and cap 0, and cap 50 with the lse) with its split
+   count, achieved GB/s and share of the bound, its plain version's
+   time, one `F.scaled_dot_product_attention` call at cap 0 as the library
    yardstick, and the host's cost of a launcher call; the kernel and SDPA
    at yi-9b's and stablelm-3b's decode shapes too; a profile of one
    decode step.
@@ -198,7 +213,11 @@ a nonzero exit; nothing is caught):
    capacity dropped at prefill and at decode (routed again from the
    captured inputs); a profile of one decode step; the kernel's time at
    each of the model's decode shapes (seamless: self and cross) against
-   its bound, its plain version and one SDPA call.
+   its bound, its plain version and one SDPA call. qwen3-moe is served a
+   second time from the same seed, in a fresh process (a bf16
+   `index_add_` combine gave the same bits twice in one process and other
+   ones across processes): the same tokens, the last logits the same bits
+   (its MoE combine sums in a fixed order).
 7. Training (no kernel on this path: the JAX training path calls no
    Pallas kernel; every `ops` count must stay 0). 7a: the fp32 smoke
    configs of stablelm-3b, qwen3-moe, mamba2, hymba, seamless-m4t and
@@ -228,15 +247,15 @@ a nonzero exit; nothing is caught):
    ranks' blocks of y and every gradient against `moe_ffn` on the card
    with the same draws, run after the ranks exit (y and x's gradient
    within rtol = atol = 2e-5, the weights' within 1e-4, all finite). 8b:
-   bf16 at the config's capacity factor 1.25, batch 2 x 4,096: the median
-   seconds of a forward and backward (2 steps, after 8a; a step ends with
-   its slowest rank), each all-to-all's bytes a rank, the weights gathered
-   a rank, the share of the dispatch that capacity drops on each rank,
-   each rank's peak memory. A record, not a claim: the ranks share one
-   card and exchange through the host. The first step's blocks of y and
-   x's gradient are held against `moe_ffn` on the card run on each rank's
-   own tokens, which takes that rank's capacity and drops what it drops
-   (within rtol = atol = 2e-2, bf16).
+   bf16 at the config's capacity factor 1.25, batch 2 x 4,096: the
+   seconds of a forward and backward (one step, after 8a, which warms the
+   ranks up; a step ends with its slowest rank), each all-to-all's bytes
+   a rank, the weights gathered a rank, the share of the dispatch that
+   capacity drops on each rank, each rank's peak memory. A record, not a
+   claim: the ranks share one card and exchange through the host. The
+   first step's blocks of y and x's gradient are held against `moe_ffn`
+   on the card run on each rank's own tokens, which takes that rank's
+   capacity and drops what it drops (within rtol = atol = 2e-2, bf16).
 9. One JSON line listing the kernels, then the result line.
 
 `--out FILE` also writes the full record (timings, shapes, profiles) as
@@ -298,6 +317,13 @@ DECODE_TOL = {"float32": (3e-5, 3e-5), "bfloat16": (2 ** -7, 1e-5)}
 CAP_SCALE = 30.0     # q scale at which the scores reach the soft cap of 50
 # SDPA against the plain version: it rounds p to bf16 before p @ v
 SDPA_TOL = 1e-2
+# Phase 2s: gemma2-9b's long_500k attention (a global layer) at every
+# published width: batch 1, 524,288 positions, 8 KV heads, g 2, h 256,
+# bf16, soft cap 50, cut into 16 sequence shards (a `data` axis of 16, the
+# KV heads whole on each shard, as a mesh whose `model` axis divides them
+# holds them); cache_len the whole cache, then the last shard part-filled,
+# then shard 3 part-filled and the 12 after it empty.
+SEQ_SPLIT = dict(arch="gemma2-9b", shape="long_500k", shards=16)
 # The serve run: gemma2-9b at full width, cut from configs/shapes.py's
 # decode_32k (B = 128, S = 32,768) to one card.
 SERVE = dict(arch="gemma2-9b", batch=4, prompt_len=4200, gen=32)
@@ -312,6 +338,10 @@ FAMILY_SERVE = (("qwen3-moe-235b-a22b", dict(n_layers=8)),
                 ("llama4-maverick-400b-a17b", dict(n_layers=2)),
                 ("mamba2-2-7b", {}), ("hymba-1-5b", {}),
                 ("seamless-m4t-medium", {}), ("internvl2-1b", {}))
+# Phase 6b decodes this model a second time from the same seed, in a
+# process of its own: the same tokens, the last logits the same bits (the
+# MoE combine sums in a fixed order)
+REPEAT_ARCH = "qwen3-moe-235b-a22b"
 # Phase 3b: the smoke configs served alike on the card and the CPU
 SERVE_PARITY = ("gemma2-9b", "yi-9b", "qwen3-moe-235b-a22b",
                 "llama4-maverick-400b-a17b", "mamba2-2-7b", "hymba-1-5b",
@@ -338,7 +368,7 @@ TRAIN_RESTART = dict(arch="stablelm-3b", batch=2, seq=32, first=4, total=6,
 MOE_ARCH = "qwen3-moe-235b-a22b"
 MOE_MESH = (2, 2)
 MOE_EQUAL = dict(batch=2, seq=512, capacity_factor=8.0)
-MOE_TIMED = dict(batch=2, seq=4096, reps=2)
+MOE_TIMED = dict(batch=2, seq=4096, reps=1)
 MOE_TOL = dict(rtol=2e-5, atol=2e-5)        # y and x's gradient
 MOE_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)   # the weights' gradients
 MOE_BF16_TOL = dict(rtol=2e-2, atol=2e-2)   # 8b: y and x's gradient
@@ -1366,16 +1396,45 @@ def decode_vs_plain(args, cap, out=None):
     return float((out.float() - want.float()).abs().max())
 
 
+def lse_vs_plain(args, cap, lse, out=None):
+    """The kernel's log-sum-exp `lse` [B, K, g] on `args` against the plain
+    version's, within the fp32 tolerance (-inf, where cache_len is 0, must
+    be -inf on both); with `out`, the kernel's fp32 output of the same
+    call, that too against the plain one, within q's dtype's tolerance.
+    Returns max |kernel - plain| over the finite lse (and `out`)."""
+    import torch
+    from repro_torch.kernels import decode_attn
+    want_out, want = decode_attn.decode_attention_plain(
+        *args, logit_cap=cap, return_lse=True)
+    err = 0.0
+    if out is not None:
+        rtol, atol = DECODE_TOL[str(args[0].dtype).removeprefix("torch.")]
+        torch.testing.assert_close(out, want_out, rtol=rtol, atol=atol)
+        err = float((out - want_out).abs().max())
+    empty = (args[3] <= 0)[:, None, None].expand_as(want)
+    assert bool(torch.isneginf(lse[empty]).all()) and bool(
+        torch.isneginf(want[empty]).all()), "cache_len 0: lse is not -inf"
+    tol = DECODE_TOL["float32"]
+    torch.testing.assert_close(lse[~empty], want[~empty], rtol=tol[0],
+                               atol=tol[1])
+    if bool((~empty).any()):
+        err = max(err, float((lse[~empty] - want[~empty]).abs().max()))
+    return err
+
+
 def phase_decode_kernel(rng, dev):
     """Every case in fp32 and bf16, cap 0 and 50, cache_len all 1, all S
-    and random, each call made twice and equal bit for bit; then cache_len
-    0 must give exact zeros; then (S > 1) q scaled by CAP_SCALE at
+    and random, each call made twice and equal bit for bit, and a third
+    time with the log-sum-exp: the same output, and the lse against the
+    plain version's within the fp32 tolerance; then cache_len 0 must give
+    exact zeros and an lse of -inf; then (S > 1) q scaled by CAP_SCALE at
     cache_len S: the cap-50 output matches the plain one and differs from
     the kernel's cap-0 output by more than 1000 x the fp32 tolerance.
-    Returns (calls, max |kernel - plain|, the least cap-50 vs cap-0 gap)."""
+    Returns (calls, max |kernel - plain|, the least cap-50 vs cap-0 gap,
+    max |lse - plain lse|)."""
     import torch
     from repro_torch.kernels import ops
-    err, n, gap = 0.0, 0, float("inf")
+    err, n, gap, lse_err = 0.0, 0, float("inf"), 0.0
     for b, s, k, g, h in DECODE_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             for clen in ([1] * b, [s] * b, rng.integers(1, s + 1, b)):
@@ -1386,10 +1445,22 @@ def phase_decode_kernel(rng, dev):
                     assert torch.equal(out, again), \
                         f"{(b, s, k, g, h)} {dtype}: two calls differ"
                     err = max(err, decode_vs_plain(args, cap, out))
-                    n += 2
+                    with_lse, lse = ops.decode_attention(
+                        *args, logit_cap=cap, return_lse=True)
+                    assert with_lse.dtype == torch.float32 and \
+                        torch.equal(with_lse.to(dtype), out), \
+                        f"{(b, s, k, g, h)} {dtype}: with the lse, the " \
+                        f"output is not the same fp32 value"
+                    lse_err = max(lse_err, lse_vs_plain(args, cap, lse))
+                    n += 3
             args = decode_inputs(rng, dev, dtype, b, s, k, g, h, [0] * b)
             zero = ops.decode_attention(*args, logit_cap=50.0)
             assert not bool(zero.any()), "cache_len 0: output is not zeros"
+            zero, lse = ops.decode_attention(*args, logit_cap=50.0,
+                                             return_lse=True)
+            assert not bool(zero.any()), "cache_len 0: output is not zeros"
+            lse_vs_plain(args, 50.0, lse)
+            n += 1
             if s == 1:
                 continue
             q, kc, vc, clen = decode_inputs(rng, dev, dtype, b, s, k, g, h,
@@ -1405,7 +1476,102 @@ def phase_decode_kernel(rng, dev):
                 f"by only {case_gap}"
             gap = min(gap, case_gap)
     torch.cuda.synchronize()
-    return n, err, gap
+    return n, err, gap, lse_err
+
+
+def seq_split_phase(args, dev, record) -> dict:
+    """Phase 2s: gemma2-9b's long_500k attention at every published width
+    (`SEQ_SPLIT`), the random cache drawn on the card from --seed. The
+    cache is cut into 16 sequence shards; the kernel runs with the lse on
+    each shard, with the shard's own cache_len (0 past the position), and
+    `layers.combine_partials` combines them. At three cache_lens the
+    result is held against the kernel on the whole cache (bf16: rtol
+    2^-7, atol 1e-5), an empty shard gives zeros and an lse of -inf, and
+    the kernel on the whole cache and on each shard (output and lse) is
+    held against the plain version on the same inputs.
+    Then both routes' times (CUDA events) at the whole cache against the
+    bound (its bytes over 3.35 TB/s). A record, not a claim."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.kernels import decode_attn, ops
+    from repro_torch.models import layers as L
+    cfg = get_config(SEQ_SPLIT["arch"])
+    cell = SHAPES[SEQ_SPLIT["shape"]]
+    b, s, n = cell.global_batch, cell.seq_len, SEQ_SPLIT["shards"]
+    kk, g, h = cfg.n_kv, cfg.n_heads // cfg.n_kv, cfg.head_dim
+    cap, per = cfg.attn_logit_softcap, s // n
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    q = torch.randn((b, kk, g, h), generator=gen, device=dev).to(
+        torch.bfloat16)
+    kc = torch.empty((b, s, kk, h), dtype=torch.bfloat16, device=dev)
+    vc = torch.empty_like(kc)
+    for c in (kc, vc):            # in shards: no 4.3 GB fp32 temporary
+        for i in range(n):
+            c[:, i * per:(i + 1) * per] = torch.randn(
+                (b, per, kk, h), generator=gen, device=dev)
+    shards = [(kc[:, i * per:(i + 1) * per], vc[:, i * per:(i + 1) * per])
+              for i in range(n)]
+
+    def split(clen):
+        parts = [ops.decode_attention(
+            q, k_i, v_i, (clen - i * per).clamp(0, per).to(torch.int32),
+            logit_cap=cap, return_lse=True)
+            for i, (k_i, v_i) in enumerate(shards)]
+        return (L.combine_partials(torch.stack([o for o, _ in parts]),
+                                   torch.stack([x for _, x in parts]),
+                                   q.dtype), parts)
+
+    rtol, atol = DECODE_TOL["bfloat16"]
+    lens = (s, s - 1000, 3 * per + 777)
+    errs, whole_errs, shard_errs = [], [], []
+    for length in lens:
+        clen = torch.full((b,), length, dtype=torch.int32, device=dev)
+        got, parts = split(clen)
+        want = ops.decode_attention(q, kc, vc, clen, logit_cap=cap)
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+        errs.append(float((got.float() - want.float()).abs().max()))
+        whole_errs.append(decode_vs_plain((q, kc, vc, clen), cap, want))
+        shard_errs.append(max(lse_vs_plain(
+            (q, k_i, v_i, (clen - i * per).clamp(0, per).to(torch.int32)),
+            cap, lse, out=o) for i, ((k_i, v_i), (o, lse)) in enumerate(
+                zip(shards, parts))))
+        gc.collect()
+        torch.cuda.empty_cache()
+        for i, (o, lse) in enumerate(parts):
+            if i * per >= length:
+                assert not bool(o.any()) and bool(torch.isneginf(lse).all()), \
+                    f"shard {i} past cache_len {length}: not empty"
+    flush = torch.empty(1 << 27, dtype=torch.uint8, device=dev)
+    full = torch.full((b,), s, dtype=torch.int32, device=dev)
+    whole_ms = time_ms(lambda: decode_attn.decode_attention_cuda(
+        q, kc, vc, full, logit_cap=cap), TIMING_REPS, flush)
+    split_ms = time_ms(lambda: split(full), TIMING_REPS, flush)
+    nbytes, _ = decode_bound(q, kc, full)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = dict(arch=cfg.name, shape=[list(q.shape), list(kc.shape)],
+               shards=n, shard_len=per, cap=cap, cache_lens=list(lens),
+               max_abs_err=errs, whole_vs_plain=whole_errs,
+               shards_vs_plain=shard_errs, whole_ms=whole_ms,
+               split_ms=split_ms,
+               bound_ms=bound_ms, bytes=nbytes, card=record["card"])
+    record["seq_split"] = out
+    log(f"phase 2s: sequence-split decode, {cfg.name} long_500k at full "
+        f"width: q {list(q.shape)}, caches {list(kc.shape)} bf16, cap "
+        f"{cap:g}, {n} shards of {per}; the combine of the shards' kernel "
+        f"outputs by their lse equals the kernel on the whole cache at "
+        f"cache_len {', '.join(map(str, lens))} (max |err| "
+        f"{', '.join(f'{e:.3g}' for e in errs)}), empty shards give zeros "
+        f"and -inf; against the plain version on the same inputs, the "
+        f"kernel on the whole cache within "
+        f"{', '.join(f'{e:.3g}' for e in whole_errs)} and the shards' "
+        f"outputs and lse within {', '.join(f'{e:.3g}' for e in shard_errs)}"
+        f"; whole cache {whole_ms:.4f} ms, 16 shards + combine "
+        f"{split_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes) on "
+        f"{record['card']}")
+    del q, kc, vc, shards, flush
+    return out
 
 
 def phase_serve_parity(seed, dev):
@@ -1481,10 +1647,11 @@ def decode_bound(q, kc, clen):
 
 
 def time_decode(q, kc, vc, clen, flush, plain=True):
-    """Kernel ms at cap 50 and cap 0, plain ms at both (with `plain`), SDPA
-    ms at cap 0 (the library call, checked against the plain cap-0
-    output), and the host's microseconds per launcher call (200 calls
-    queued back to back, no sync between)."""
+    """Kernel ms at cap 50 and cap 0, plain ms at both (with `plain`), the
+    kernel's ms at cap 50 with the lse written too, SDPA ms at cap 0 (the
+    library call, checked against the plain cap-0 output), and the host's
+    microseconds per launcher call (200 calls queued back to back, no sync
+    between)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attn
@@ -1500,6 +1667,11 @@ def time_decode(q, kc, vc, clen, flush, plain=True):
             out[f"plain_ms_cap{cap:g}"] = time_ms(
                 lambda: decode_attn.decode_attention_plain(
                     q, kc, vc, clen, logit_cap=cap), TIMING_REPS, flush)
+    out["ms_lse_cap50"] = time_ms(
+        lambda: decode_attn.decode_attention_cuda(q, kc, vc, clen,
+                                                  logit_cap=50.0,
+                                                  return_lse=True),
+        TIMING_REPS, flush)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(200):
@@ -2786,7 +2958,8 @@ def serve_phase(args, dev, record, dec_err):
         f"{t['bound_share_cap50']:.3f} of the bound), {t['ms_cap0']:.4f} ms "
         f"at cap 0 ({t['gb_per_s_cap0']:.0f} GB/s, "
         f"{t['bound_share_cap0']:.3f}); plain {t['plain_ms_cap50']:.4f} / "
-        f"{t['plain_ms_cap0']:.4f} ms; SDPA at cap 0 "
+        f"{t['plain_ms_cap0']:.4f} ms; with the lse {t['ms_lse_cap50']:.4f}"
+        f" ms at cap 50; SDPA at cap 0 "
         f"{t['library_ms_cap0']:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms "
         f"({nbytes} bytes); host {t['host_us_per_call']:.1f} us a call")
     del q, kc, vc
@@ -2831,7 +3004,8 @@ def serve_phase(args, dev, record, dec_err):
         plain_ms=t["plain_ms_cap50"], bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=t["library_ms_cap0"], ms_cap0=t["ms_cap0"],
-        plain_ms_cap0=t["plain_ms_cap0"], nsplit=nsplit,
+        plain_ms_cap0=t["plain_ms_cap0"], ms_lse=t["ms_lse_cap50"],
+        nsplit=nsplit,
         gb_per_s=t["gb_per_s_cap50"], bound_share=t["bound_share_cap50"],
         library_note=SDPA_NOTE)
 
@@ -2973,6 +3147,7 @@ def family_phase(args, dev, record, entry):
                f"{err:.3g})" if n_attn else "") + drop_note
             + f"; tokens[0] {run.tokens[0, :8].tolist()}")
 
+        first = (run.tokens.copy(), run.logits.cpu())
         # one more decode step (the context's last position), profiled
         pos = torch.full((b,), s0 + gen - 1, dtype=torch.int32, device=dev)
         tok = torch.from_numpy(run.tokens[:, -1:].astype(np.int32)).to(dev)
@@ -2990,6 +3165,22 @@ def family_phase(args, dev, record, entry):
         del run, tok, pos
         gc.collect()
         torch.cuda.empty_cache()
+        if arch == REPEAT_ARCH:
+            t0 = time.perf_counter()
+            again = serve_elsewhere(arch, args.seed)
+            same = (bool(np.array_equal(again["tokens"].numpy(), first[0])),
+                    bool(torch.equal(again["logits"], first[1])))
+            del again
+            rec["repeat"] = dict(tokens_equal=same[0],
+                                 logits_bitwise_equal=same[1],
+                                 s=time.perf_counter() - t0)
+            log(f"phase 6b: {cfg.name} served again from seed {args.seed} "
+                f"in a fresh process: "
+                f"tokens equal {same[0]}, last logits equal bit for bit "
+                f"{same[1]} ({rec['repeat']['s']:.1f} s)")
+            assert all(same), f"{arch}: a second run from the same seed " \
+                f"gave other tokens or logits"
+        del first
 
         # the decode kernel at each of this model's shapes, cache_len =
         # the cache
@@ -3031,6 +3222,40 @@ def family_phase(args, dev, record, entry):
     del flush
     record["families_s"] = time.perf_counter() - t_phase
     log(f"phase 6b: {record['families_s']:.1f} s")
+
+
+def serve_elsewhere(arch, seed) -> dict:
+    """`arch` at its `FAMILY_SERVE` cut served from `seed` by a fresh
+    Python process on the card (`serve_to_file`, the kernels loaded from
+    the build directory): its tokens [B, gen] and last logits, on the
+    CPU."""
+    import tempfile
+    import torch
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_repeat_") as tmp:
+        path = os.path.join(tmp, "run.pt")
+        child = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke."
+             f"serve_to_file({arch!r}, {seed}, {path!r})"], cwd=REPO,
+            capture_output=True, text=True, timeout=RANK_TIMEOUT,
+            env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [REPO, os.path.join(REPO, "src")])))
+        assert child.returncode == 0, child.stdout + child.stderr
+        return torch.load(path)
+
+
+def serve_to_file(arch, seed, path) -> None:
+    """The child of `serve_elsewhere`: serve and save the tokens and the
+    last logits to `path`."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    cfg = dataclasses.replace(get_config(arch), **dict(FAMILY_SERVE)[arch])
+    run = serve.serve(cfg, batch=SERVE["batch"],
+                      prompt_len=SERVE["prompt_len"], gen=SERVE["gen"],
+                      seed=seed, device=torch.device("cuda", 0))
+    torch.save(dict(tokens=torch.from_numpy(run.tokens),
+                    logits=run.logits.cpu()), path)
 
 
 # ------------------------------------------------------------- training --
@@ -3597,14 +3822,24 @@ def main() -> int:
         f"{FRONTIER_WIDE}, nf/mf at the int32 limit and past it), bitwise "
         f"equal ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    n_dec, dec_err, cap_gap = phase_decode_kernel(
+    n_dec, dec_err, cap_gap, lse_err = phase_decode_kernel(
         np.random.default_rng([args.seed, 2]), dev)
     record["decode_cases"] = dict(calls=n_dec, max_abs_err=dec_err,
-                                  cap_gap=cap_gap)
+                                  cap_gap=cap_gap, lse_max_abs_err=lse_err,
+                                  s=time.perf_counter() - t0)
     log(f"phase 2: decode_attention: {n_dec} random calls within tolerance "
-        f"(max |kernel - plain| {dec_err:.3g}), exact zeros at cache_len 0, "
-        f"soft cap moves every scaled case by >= {cap_gap:.3g} "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"(max |kernel - plain| {dec_err:.3g}; the lse within "
+        f"{lse_err:.3g} of the plain one), exact zeros and an lse of -inf "
+        f"at cache_len 0, soft cap moves every scaled case by >= "
+        f"{cap_gap:.3g} ({time.perf_counter() - t0:.1f} s)")
+
+    # 2s. the sequence-split decode at gemma2-9b's long_500k width
+    t0 = time.perf_counter()
+    seq_split = seq_split_phase(args, dev, record)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq_split["s"] = time.perf_counter() - t0
+    log(f"phase 2s: {seq_split['s']:.1f} s")
 
     # 3. whole-search parity, GPU against CPU
     t0 = time.perf_counter()
@@ -3648,6 +3883,8 @@ def main() -> int:
 
     # 6. the serving path at full width
     entries.append(serve_phase(args, dev, record, dec_err))
+    entries[-1]["seq_split"] = {k: seq_split[k] for k in (
+        "whole_ms", "split_ms", "bound_ms", "max_abs_err")}
     gc.collect()
     torch.cuda.empty_cache()
 

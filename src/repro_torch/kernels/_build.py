@@ -55,8 +55,8 @@ ENTRY_POINTS = {
     "bottomup_resident": ("repro_bottomup_resident", [_I, _P, _I]),
     "bottomup_attributes": ("repro_bottomup_attributes", [_I, _I, _P, _I]),
     "decode_attn": ("repro_decode_attention",
-                    [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
-                     _I64, _I64, _F, _F, _I, _I, _P]),
+                    [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                     _I64, _I64, _I64, _F, _F, _I, _I, _P]),
     "decode_attn_resident": ("repro_decode_attention_resident",
                              [_I64, _I64, _I, _P, _I]),
     "decode_attn_attributes": ("repro_decode_attention_attributes",

@@ -321,7 +321,8 @@ def decode_contract(b: int, s: int, kk: int, g: int, h: int, *,
                     kernel: str = "decode_attention") -> KernelContract:
     """A decode attention call (`decode_attn.decode_attention_cuda`): q [B,
     K, g, h] against caches of S positions, split by
-    `decode_attn.split_plan`."""
+    `decode_attn.split_plan`. The optional lse pointer (`return_lse=True`)
+    changes no launch, instance or plan."""
     from repro_torch.kernels import decode_attn as da
     nsplit, split_len = da.split_plan(b, kk, s, sms, resident)
     return KernelContract(

@@ -58,6 +58,16 @@
 //   launch, not a second combine kernel: the decode step is bound by the
 //   host's launches. With cache_len 0 no split has work and the output is
 //   exact zeros.
+// - The log-sum-exp of the scores (m + log l over all splits, fp32), the
+//   TPU kernel's running max and sum folded into one number, is written
+//   by the same last block when the caller passes an lse array, and only
+//   then: a cache cut into sequence shards attends on each shard with its
+//   own cache_len and combines the shards' outputs by their lse
+//   (`models/layers.py` combine_partials). With cache_len 0 it is -inf.
+//   The output is then fp32, not rounded to q's type: a shard's output is
+//   a partial, rounded once only after the shards are combined (bf16
+//   partials put up to half a step of each shard's larger values into the
+//   combined one).
 // - CUDA cores, not tensor cores: the arithmetic is not the limit, and a
 //   bf16 mma for p.V would round p to bf16. expf/tanhf, not the fast
 //   intrinsics, so that fp32 agrees to ~1e-5.
@@ -129,6 +139,8 @@ struct Args {
   const void* v;
   const int32_t* cache_len;
   void* out;
+  float* lse;       // [B, K, g] m + log(l), or null: not written
+                    // (given: out is float32)
   float* scratch;   // acc [B, K, nsplit, g, h], then m and l [B, K, nsplit, g]
   int32_t* counters;  // [B, K], zero between calls
   int64_t b, s, kk;
@@ -418,12 +430,14 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(Args a,
       l += cl[s * g + tid] * w;
     }
     lsum[tid] = l;
+    if (a.lse != nullptr) a.lse[bk * g + tid] = mx + logf(l);
   }
   __syncthreads();
   // Thread tid takes outputs tid + u * kThreads (at most GM of them, as
   // g * h <= GM * 256), all their loads of one split in flight at once.
   const float* ab = acc_part + bk * a.nsplit * g * h;
   T* ob = static_cast<T*>(a.out) + bk * g * h;
+  float* of = static_cast<float*>(a.out) + bk * g * h;   // with an lse
   float x[GM];
   int jo[GM];
 #pragma unroll
@@ -442,7 +456,14 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(Args a,
 #pragma unroll
   for (int u = 0; u < GM; ++u) {
     const int i = tid + u * kThreads;
-    if (i < g * h) store(ob + i, x[u] / fmaxf(lsum[jo[u]], 1e-30f));
+    if (i < g * h) {
+      const float y = x[u] / fmaxf(lsum[jo[u]], 1e-30f);
+      if (a.lse != nullptr) {
+        of[i] = y;
+      } else {
+        store(ob + i, y);
+      }
+    }
   }
   if (tid == 0) a.counters[bk] = 0;
 }
@@ -488,19 +509,22 @@ cudaError_t dispatch(const Args& a, int* resident) {
 }  // namespace
 
 // q [b, kk, g, h], k/v [b, s, kk, h] of one type (dtype 0: float32,
-// 1: bfloat16), cache_len int32[b], out [b, kk, g, h] of q's type, all on
-// `device`; 1 <= h <= 256, 1 <= g <= 16, scale = h^-0.5, cap = 0 for no
-// soft cap. S is cut into nsplit ranges of split_len positions (a multiple
-// of 32, nsplit * split_len >= s, nsplit <= 64). scratch: float32
+// 1: bfloat16), cache_len int32[b], out [b, kk, g, h] of q's type (float32
+// when lse is given), lse float32 [b, kk, g] or null (written only when
+// given), all on `device`;
+// 1 <= h <= 256, 1 <= g <= 16, scale = h^-0.5, cap = 0 for no soft cap.
+// S is cut into nsplit ranges of split_len positions (a multiple of 32,
+// nsplit * split_len >= s, nsplit <= 64). scratch: float32
 // [b * kk * nsplit * g * (h + 2)]; counters: int32 [b * kk], all zero (the
 // kernel leaves them zero). The calling thread's current device is left as
 // it was. Returns the launch's cudaError_t (0 on success;
 // cudaErrorInvalidValue for arguments it does not take).
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* cache_len,
-    void* out, void* scratch, void* counters, int64_t b, int64_t s,
-    int64_t kk, int64_t g, int64_t h, int64_t nsplit, int64_t split_len,
-    float scale, float cap, int dtype, int device, void* stream) {
+    void* out, void* lse, void* scratch, void* counters, int64_t b,
+    int64_t s, int64_t kk, int64_t g, int64_t h, int64_t nsplit,
+    int64_t split_len, float scale, float cap, int dtype, int device,
+    void* stream) {
   if (h < 1 || h > 256 || g < 1 || g > kMaxGroup || nsplit < 1 ||
       nsplit > kMaxSplits || split_len < 1 || split_len % kTile != 0 ||
       nsplit * split_len < s || (dtype != 0 && dtype != 1)) {
@@ -514,6 +538,7 @@ extern "C" int repro_decode_attention(
                v,
                static_cast<const int32_t*>(cache_len),
                out,
+               static_cast<float*>(lse),
                static_cast<float*>(scratch),
                static_cast<int32_t*>(counters),
                b,

@@ -124,11 +124,14 @@ def _counter_buffer(device: torch.device, stream: int, n: int):
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, cache_len: torch.Tensor, *,
-                          logit_cap: float = 0.0) -> torch.Tensor:
+                          logit_cap: float = 0.0, return_lse: bool = False):
     """Launch `csrc/decode_attn.cu` on the current stream: out [B, K, g, h]
     in q's dtype (float32 or bfloat16, the caches' too), 1 <= h <= 256,
-    g <= 16. S is split across blocks by `split_plan` (recorded in
-    LAST_PLAN); the splits' fp32 partials go to scratch allocated here."""
+    g <= 16; with `return_lse` (out, lse [B, K, g]), the scores'
+    log-sum-exp (-inf where cache_len is 0) and the output both fp32, not
+    rounded (to be combined with other shards'). S is split across blocks
+    by `split_plan` (recorded in LAST_PLAN); the splits' fp32 partials go
+    to scratch allocated here."""
     if q.dtype not in DTYPE_CODES:
         raise KernelContractError(
             f"decode_attention: q is {q.dtype}; the kernel takes "
@@ -154,34 +157,52 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     LAST_PLAN.update(nsplit=nsplit, split_len=split_len,
                      blocks=b * kk * nsplit, resident=resident)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=torch.float32 if return_lse
+                      else q.dtype, device=q.device)
+    lse = (torch.empty((b, kk, g), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     scratch = torch.empty(b * kk * nsplit * g * (h + 2), dtype=torch.float32,
                           device=q.device)
     counters = _counter_buffer(q.device, stream, b * kk)
     _build.launch("decode_attn", q.data_ptr(), k_cache.data_ptr(),
                   v_cache.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
+                  None if lse is None else lse.data_ptr(),
                   scratch.data_ptr(), counters.data_ptr(), b, s, kk, g, h,
                   nsplit, split_len, h ** -0.5, float(logit_cap),
                   DTYPE_CODES[q.dtype], device=q.device.index, stream=stream)
-    return out
+    return (out, lse) if return_lse else out
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, cache_len: torch.Tensor, *,
-                           logit_cap: float = 0.0) -> torch.Tensor:
+                           logit_cap: float = 0.0, return_lse: bool = False):
     """The same function in PyTorch: q [B, K, g, h], caches [B, S, K, h],
-    cache_len int32[B] -> [B, K, g, h] in q's dtype."""
-    h = q.shape[-1]
-    s = k_cache.shape[1]
-    scores = torch.einsum("bkgh,bskh->bkgs", q.float(),
-                          k_cache.float()) * h ** -0.5
+    cache_len int32[B] -> [B, K, g, h] in q's dtype; with `return_lse`
+    (out, lse [B, K, g]), both fp32, as the kernel gives them."""
+    scores = torch.einsum("bkgh,bskh->bkgs", q.float(), k_cache.float())
+    return attend(scores * q.shape[-1] ** -0.5, v_cache, cache_len,
+                  logit_cap=logit_cap, return_lse=return_lse,
+                  dtype=torch.float32 if return_lse else q.dtype)
+
+
+def attend(scores: torch.Tensor, v_cache: torch.Tensor,
+           cache_len: torch.Tensor, *, logit_cap: float, dtype,
+           return_lse: bool = False):
+    """The plain form from its scaled fp32 scores [B, K, g, S] on: the soft
+    cap, the mask of the positions from cache_len[b] on, the softmax and
+    p.V -> [B, K, g, h] in `dtype` (and lse [B, K, g] = m + log l, -inf
+    where no position is valid)."""
+    s = scores.shape[-1]
     if logit_cap:
         scores = logit_cap * torch.tanh(scores / logit_cap)
-    valid = (torch.arange(s, device=q.device)[None]
-             < cache_len.to(q.device)[:, None])[:, None, None]   # [B,1,1,S]
+    valid = (torch.arange(s, device=scores.device)[None]
+             < cache_len.to(scores.device)[:, None])[:, None, None]
     scores = torch.where(valid, scores, NEG_INF)
-    p = torch.where(valid, torch.exp(scores - scores.amax(-1, keepdim=True)),
-                    0.0)
-    p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float())
-    return out.to(q.dtype)
+    m = scores.amax(-1, keepdim=True)
+    p = torch.where(valid, torch.exp(scores - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    p = p / l.clamp_min(1e-30)
+    out = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float()).to(dtype)
+    if not return_lse:
+        return out
+    return out, (m + torch.log(l))[..., 0]

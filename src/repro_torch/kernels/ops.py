@@ -238,23 +238,33 @@ def frontier_fused(flags, deg, *, packed=True):
 # ------------------------------------------------------------ LLM serving --
 
 
-def decode_attention(q, k_cache, v_cache, cache_len, *, logit_cap=0.0):
+def decode_attention(q, k_cache, v_cache, cache_len, *, logit_cap=0.0,
+                     return_lse=False):
     """Flash-decode attention: q [B, K, g, h] against caches [B, S, K, h]
-    with valid lengths `cache_len` int32[B] -> [B, K, g, h] in q's dtype.
+    with valid lengths `cache_len` int32[B] -> [B, K, g, h] in q's dtype;
+    with `return_lse` (out, lse [B, K, g]), both fp32: the output not
+    rounded and the log-sum-exp of each head's scores (-inf where
+    cache_len is 0), which combine the outputs of a cache cut into
+    sequence shards (`models.layers.combine_partials`).
 
-    An empty batch or cache returns zeros without a launch (the kernel
-    would write zeros for S = 0 too).
+    An empty batch or cache returns zeros (and lse -inf) without a launch
+    (the kernel would write zeros for S = 0 too).
     """
     # Lazy: the serving path's kernel stays out of the BFS path's imports,
     # as the JAX package's quarantine (DC001) keeps it.
     from repro_torch.kernels import decode_attn as _da
 
     if q.shape[0] == 0 or k_cache.shape[1] == 0:
-        return torch.zeros_like(q)
+        if not return_lse:
+            return torch.zeros_like(q)
+        return (torch.zeros(q.shape, device=q.device),
+                torch.full(q.shape[:3], float("-inf"), device=q.device))
     if not q.is_cuda:
         return _da.decode_attention_plain(q, k_cache, v_cache, cache_len,
-                                          logit_cap=logit_cap)
+                                          logit_cap=logit_cap,
+                                          return_lse=return_lse)
     out = _da.decode_attention_cuda(q, k_cache, v_cache, cache_len,
-                                    logit_cap=logit_cap)
+                                    logit_cap=logit_cap,
+                                    return_lse=return_lse)
     _count("decode_attention")
     return out

@@ -46,11 +46,16 @@ Where the dry-run departs from the reference's policy:
     over `model` (yi-34b, internvl2, llama4, hymba, seamless) replicate
     attention on every `model` rank, where the reference shards it by
     sequence: their FLOPs and bytes a rank describe that fallback;
-  * decode does not run on attention archs: the in-place cache write
-    (`aten.index_put_` on a sharded cache) has no DTensor rule, so those
-    cells are `error` records and `cache_specs` is counted
-    (`cache_bytes_per_rank`) but no step runs on it; nor does the SSD's
-    chunked scan (`aten.bmm` on strided shards) in some cells.
+  * the decode body for a cache whose head_dim is sharded (the partial
+    scores all-reduced over `model`, `_head_dim_attention`) is plain
+    PyTorch on every device: no kernel computes partial scores.
+
+The decode step runs on the caches `cache_specs` places
+(`_sharded_write_kv`, `_sharded_decode_attention`, `_sharded_ssm_recur`;
+the MoE at one token a row through `_sharded_moe_ffn`); the SSD's chunked
+scan of the train and prefill steps has no DTensor rule in some cells
+(`aten.bmm` on strided shards: mamba2's train_4k, hymba's multi-pod
+train_4k).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch stablelm-3b --shape train_4k
@@ -78,7 +83,9 @@ from repro_torch.configs.shapes import SHAPES, cell_applicable, input_specs
 from repro_torch.launch import mesh as MESH
 from repro_torch.models import decode as D
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.models import model as MODEL
+from repro_torch.models import moe as MOE
 from repro_torch.parallel import sharding as SH
 from repro_torch.train.optimizer import OptConfig, init_opt_state
 from repro_torch.train.serve_step import make_decode_step, make_prefill_step
@@ -160,10 +167,9 @@ def _setup(rules, multi_pod: bool, arch: str):
     return rules, ocfg
 
 
-def _sharded_model(cfg, mesh, rules) -> nn.Module:
-    """The model (under the caller's FakeTensorMode) with every parameter
-    a DTensor of its spec."""
-    model = MODEL.Model(cfg, device="cpu")
+def shard_model(model: nn.Module, cfg, mesh, rules) -> nn.Module:
+    """`model` with every parameter made a DTensor of its spec (each rank
+    keeps its shard of the whole tensor it holds), in place."""
     shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
     specs = SH.param_specs(cfg, shapes, mesh, rules)
     for name, p in list(model.named_parameters()):
@@ -175,18 +181,18 @@ def _sharded_model(cfg, mesh, rules) -> nn.Module:
     return model
 
 
+def shard_cache(cache: dict, mesh, rules) -> dict:
+    """Each cache tensor (the whole one) as a DTensor of its
+    `cache_specs` spec."""
+    specs = SH.cache_specs(cache, mesh, rules)
+    return {k: SH.distribute(v, mesh, specs[k]) for k, v in cache.items()}
+
+
 def _inputs(cfg, shape: str, mesh, rules) -> dict:
     specs = input_specs(cfg, shape)
     bspecs = SH.batch_specs(specs, mesh, rules)
     return {k: SH.distribute(torch.zeros(v.shape, dtype=v.dtype), mesh,
                            bspecs[k]) for k, v in specs.items()}
-
-
-def _cache(cfg, cell, mesh, rules) -> dict:
-    cache = D.init_cache(cfg, cell.global_batch, cell.seq_len,
-                         enc_len=min(cell.seq_len, 32768))
-    specs = SH.cache_specs(cache, mesh, rules)
-    return {k: SH.distribute(v, mesh, specs[k]) for k, v in cache.items()}
 
 
 # ------------------------------------------------------- DTensor forwards
@@ -274,6 +280,226 @@ def _sharded_attention(flash, q, k, v, **kw):
     return fn(q, k, v)
 
 
+def _spec_of(t) -> tuple:
+    """DTensor t's spec (see `parallel.sharding`): for each dim None, the
+    mesh axis sharding it, or those axes in mesh order. A Partial or an
+    uneven (strided) shard is a layout no decode body takes: it raises."""
+    from torch.distributed.tensor import Shard
+    spec = [[] for _ in range(t.ndim)]
+    for name, p in zip(t.device_mesh.mesh_dim_names, t.placements):
+        if p.is_replicate():
+            continue
+        if type(p) is not Shard:
+            raise ValueError(f"decode on a mesh: placement {p} of a "
+                             f"{tuple(t.shape)} tensor is not taken")
+        spec[p.dim].append(name)
+    return tuple(None if not a else a[0] if len(a) == 1 else tuple(a)
+                 for a in spec)
+
+
+def _kv_spec(kc, vc) -> tuple:
+    """The spec of a layer's K and V caches [B, S, K, h] (one for both)."""
+    spec = _spec_of(kc)
+    if _spec_of(vc) != spec:
+        raise ValueError(f"decode on a mesh: k cache {spec}, v cache "
+                         f"{_spec_of(vc)}")
+    return spec
+
+
+def _axis(spec_entry, what: str):
+    """The one mesh axis of a cache dim a decode body communicates over."""
+    if spec_entry is not None and not isinstance(spec_entry, str):
+        raise ValueError(f"decode on a mesh: the cache's {what} is sharded "
+                         f"over {spec_entry}; the bodies take one axis")
+    return spec_entry
+
+
+def _replicated(t, mesh):
+    """A plain tensor made on every rank alike (the encoder memory's
+    lengths) as a replicated DTensor; a DTensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _offset(mesh, axis: str, n: int) -> int:
+    """The first position of this rank's block of n along `axis`."""
+    return mesh.get_local_rank(axis) * n
+
+
+def _sharded_write_kv(plain, ck, cv, k_new, v_new, slot):
+    """`write_kv` on caches [B, S, K, h] placed by `cache_specs`: each rank
+    writes its block (batch on the batch axes, KV heads or head_dim on
+    `model`), no communication. Where the sequence is sharded, only the
+    rank whose block holds a row's slot changes it: the others write that
+    row's old values back, so their caches stay as they were bit for
+    bit."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = ck.device_mesh
+    bx, sx, kx, hx = spec = _kv_spec(ck, cv)
+    sx = _axis(sx, "sequence")
+
+    def body(ckl, cvl, kl, vl, sl):
+        if sx is None:
+            plain(ckl, cvl, kl, vl, sl)
+            return ckl, cvl
+        n = ckl.shape[1]
+        at = sl.long() - _offset(mesh, sx, n)
+        own = ((at >= 0) & (at < n))[:, None, None]
+        at = at.clamp(0, n - 1)
+        rows = torch.arange(ckl.shape[0], device=ckl.device)
+        for cache, new in ((ckl, kl), (cvl, vl)):
+            cache[rows, at] = torch.where(own, new[:, 0], cache[rows, at])
+        return ckl, cvl
+
+    cache_p = SH.placements(spec, mesh)
+    new_p = SH.placements((bx, None, kx, hx), mesh)
+    local_map(body, out_placements=(cache_p, cache_p),
+              in_placements=(cache_p, cache_p, new_p, new_p,
+                             SH.placements((bx,), mesh)),
+              redistribute_inputs=True, device_mesh=mesh)(
+        ck, cv, k_new, v_new, slot)
+
+
+def _head_dim_attention(ql, kl, vl, ll, hd: int, logit_cap: float, group,
+                        return_lse: bool):
+    """Decode attention on a block whose head_dim is one shard of `group`:
+    the partial scores are summed over the group before the scale, the
+    cap, the mask and the softmax (what the reference's einsum gets from
+    GSPMD), and p.V stays on this rank's head_dim. Plain PyTorch on every
+    device: no kernel computes partial scores."""
+    import torch.distributed._functional_collectives as fc
+    from repro_torch.kernels import decode_attn as DA
+
+    b, _, hq, hl = ql.shape
+    hk = kl.shape[2]
+    part = torch.einsum("bkgh,bskh->bkgs",
+                        ql.reshape(b, hk, hq // hk, hl).float(), kl.float())
+    scores = fc.wait_tensor(fc.all_reduce(part, "sum", group))
+    res = DA.attend(scores * hd ** -0.5, vl, ll, logit_cap=logit_cap,
+                    dtype=torch.float32 if return_lse else ql.dtype,
+                    return_lse=return_lse)
+    if not return_lse:
+        return res.reshape(b, 1, hq, hl)
+    return res[0].reshape(b, 1, hq, hl), res[1].reshape(b, 1, hq)
+
+
+def _sharded_decode_attention(plain, q, kc, vc, clen, *, logit_cap=0.0):
+    """`decode_attention` of q [B, 1, H, h] on caches [B, S, K, h] placed
+    by `cache_specs`, one body per layout:
+      * batch and/or KV heads sharded: each rank attends on its block
+        (`plain`: the kernel on a CUDA block, the plain form on a CPU one;
+        q's heads follow their KV heads), no communication;
+      * head_dim sharded: `_head_dim_attention`, the partial scores
+        all-reduced over that axis;
+      * sequence sharded: each rank attends over its positions with its
+        own cache_len (0 where its block lies past it), giving its output
+        and log-sum-exp, and `layers.combine_partials` combines the
+        all-gathered partials over the sequence axis. With head_dim also
+        sharded the two compose.
+    The result keeps q's batch and the cache's KV-head or head_dim
+    sharding."""
+    import torch.distributed._functional_collectives as fc
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = kc.device_mesh
+    bx, sx, kx, hx = spec = _kv_spec(kc, vc)
+    sx, hx = _axis(sx, "sequence"), _axis(hx, "head_dim")
+    hd = q.shape[-1]
+
+    def body(ql, kl, vl, ll):
+        if sx is not None:
+            n = kl.shape[1]
+            ll = (ll - _offset(mesh, sx, n)).clamp(0, n).to(torch.int32)
+        lse = sx is not None
+        if hx is None:
+            res = plain(ql, kl, vl, ll, logit_cap=logit_cap, return_lse=lse)
+        else:
+            res = _head_dim_attention(ql, kl, vl, ll, hd, logit_cap,
+                                      mesh.get_group(hx), lse)
+        if sx is None:
+            return res
+        group = mesh.get_group(sx)
+        outs, lses = (fc.wait_tensor(fc.all_gather_single(t[None], 0, group))
+                      for t in res)
+        return L.combine_partials(outs, lses, ql.dtype)
+
+    q_p = SH.placements((bx, None, kx, hx), mesh)
+    cache_p = SH.placements(spec, mesh)
+    fn = local_map(body, out_placements=list(q_p),
+                   in_placements=(q_p, cache_p, cache_p,
+                                  SH.placements((bx,), mesh)),
+                   redistribute_inputs=True, device_mesh=mesh)
+    return fn(q, kc, vc, _replicated(clen, mesh))
+
+
+def _sharded_ssm_recur(plain, state, xs, dt, a, bmat, cmat):
+    """`ssm_recur` on the state [B, H, P, N] placed by `cache_specs`
+    (batch on the batch axes, or heads on `data` at batch 1, and `model`
+    on P, else N, else H): the update is elementwise in (b, h, p, n), so
+    each rank runs it on its block, with x, dt, a, B and C cut to match;
+    the read-out y [B, H, P] is a partial sum where N is sharded, and is
+    returned whole over P and N. The new state keeps the cache's
+    placements, so the write-back is a local copy."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = state.device_mesh
+    bx, hx, px, nx = spec = _spec_of(state)
+    nx = _axis(nx, "state dim")
+    y_p = SH.placements((bx, hx, px), mesh, (nx,) if nx else ())
+    fn = local_map(
+        plain, out_placements=(y_p, SH.placements(spec, mesh)),
+        in_placements=tuple(SH.placements(sp, mesh) for sp in (
+            spec, (bx, hx, px), (bx, hx), (hx,), (bx, nx), (bx, nx))),
+        redistribute_inputs=True, device_mesh=mesh)
+    y, new = fn(state, xs, dt, a, bmat, cmat)
+    # whole over P (and summed over N): the gated norm reads y as [B, H*P]
+    return y.redistribute(mesh, SH.placements((bx, hx, None), mesh)), new
+
+
+def _sharded_moe_ffn(params, x, cfg):
+    """`moe_ffn` on DTensors, where `moe_ffn_a2a` hands off to it (decode:
+    one token a row does not divide over `model`): the tokens gathered
+    whole on every rank and routed there as `moe_ffn` routes them (the
+    capacity of the global token count), each `model` rank running the
+    experts it owns on its slice of the dispatch buffer (their weights
+    gathered over the fsdp axes), and the ranks' contributions summed over
+    `model`."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, r = SH._ambient()
+    e = cfg.n_experts
+    tp = r.tp_axis if SH._fit(e, mesh, r.tp_axis) else None
+
+    def body(xl, router, wg, wi, wo):
+        b, s, d = xl.shape
+        t = b * s
+        c = MOE.capacity(cfg, t)
+        xf = xl.reshape(t, d)
+        gates, order, _, tok_sorted, slot, keep = MOE._route(router, xf, cfg,
+                                                             c)
+        buf = MOE._dispatch(xf, slot, tok_sorted, e * c).reshape(e, c, d)
+        first = mesh.get_local_rank(tp) * wg.shape[0] if tp else 0
+        mine = slice(first, first + wg.shape[0])
+        out = torch.zeros_like(buf)
+        out[mine] = MOE._experts(buf[mine], wg, wi, wo)
+        return MOE._combine(out.reshape(e * c, d), gates, order, slot, keep,
+                            t).reshape(b, s, d)
+
+    whole = SH.placements((None, None, None), mesh)
+    experts = SH.placements((tp, None, None), mesh)
+    fn = local_map(
+        body, out_placements=list(SH.placements((None, None, None), mesh,
+                                                (tp,) if tp else ())),
+        in_placements=(whole, SH.placements((None, None), mesh), experts,
+                       experts, experts),
+        redistribute_inputs=True, device_mesh=mesh)
+    return fn(x, params.router, params.wg, params.wi, params.wo)
+
+
 def _masked_gold(logits, labels):
     """`model._gold` by a masked sum: DTensor's gather over a sharded
     vocab fails (its masked partial result takes the index's placement for
@@ -290,7 +516,10 @@ def sharded_forwards():
     from torch.distributed.tensor import DTensor
     plain = {(L, "project"): L.project, (L, "_out"): L._out,
              (L, "_mlp"): L._mlp, (L, "flash_attention"): L.flash_attention,
-             (MODEL, "_gold"): MODEL._gold}
+             (MODEL, "_gold"): MODEL._gold,
+             (L, "decode_attention"): L.decode_attention,
+             (D, "write_kv"): D.write_kv, (M, "ssm_recur"): M.ssm_recur,
+             (MOE, "moe_ffn"): MOE.moe_ffn}
 
     def on_dtensor(key, sharded):
         def fn(*args, **kw):
@@ -309,6 +538,14 @@ def sharded_forwards():
         (L, "flash_attention"): lambda q, k, v, **kw: _sharded_attention(
             plain[L, "flash_attention"], q, k, v, **kw),
         (MODEL, "_gold"): _masked_gold,
+        (L, "decode_attention"): lambda q, k, v, n, **kw:
+            _sharded_decode_attention(plain[L, "decode_attention"], q, k, v,
+                                      n, **kw),
+        (D, "write_kv"): lambda *a: _sharded_write_kv(plain[D, "write_kv"],
+                                                      *a),
+        (M, "ssm_recur"): lambda *a: _sharded_ssm_recur(
+            plain[M, "ssm_recur"], *a),
+        (MOE, "moe_ffn"): _sharded_moe_ffn,
     }
     try:
         for key, sharded in swaps.items():
@@ -402,12 +639,19 @@ class Tally(TorchDispatchMode):
         if packet in self.registry:
             self.flops += self.registry[packet](*args, **kwargs,
                                                 out_val=out)
+        # a view or an in-place result allocates nothing: its storage is an
+        # input's (an argument of the step, such as a cache, or counted)
+        given = {id(t.untyped_storage()) for t in
+                 torch.utils._pytree.tree_leaves((args, kwargs))
+                 if isinstance(t, torch.Tensor)}
         seen = self.collectives.get(packet)
         # the autograd collectives dispatch the plain ones: count those
         if seen is not None and seen[0] == "_c10d_functional":
             self.coll[seen[1]] += out.numel() * out.element_size()
         for t in torch.utils._pytree.tree_leaves(out):
-            self._hold(t)
+            if isinstance(t, torch.Tensor) and \
+                    id(t.untyped_storage()) not in given:
+                self._hold(t)
         return out
 
 
@@ -431,7 +675,8 @@ def _step(cfg, cell, shape: str, mesh, rules, ocfg) -> dict:
     from torch.distributed.tensor.experimental import implicit_replication
 
     with FakeTensorMode():
-        model = _sharded_model(cfg, mesh, rules)
+        model = shard_model(MODEL.Model(cfg, device="cpu"), cfg, mesh,
+                            rules)
         inputs = _inputs(cfg, shape, mesh, rules)
         args = [model]
         if cell.kind == "train":
@@ -443,7 +688,9 @@ def _step(cfg, cell, shape: str, mesh, rules, ocfg) -> dict:
             args += [inputs]
         else:
             fn = make_decode_step(cfg)
-            args += [_cache(cfg, cell, mesh, rules), inputs["tokens"],
+            cache = D.init_cache(cfg, cell.global_batch, cell.seq_len,
+                                 enc_len=min(cell.seq_len, 32768))
+            args += [shard_cache(cache, mesh, rules), inputs["tokens"],
                      inputs["positions"]]
         tally = Tally()
         with SH.activate(mesh, rules), implicit_replication(), \
@@ -467,6 +714,30 @@ def _extrapolate(p1: dict, p2: dict, n: int) -> dict:
     }
 
 
+def held_bytes(cfg, full: nn.Module, shape: str, mesh, rules,
+               ocfg) -> dict:
+    """What one rank holds of a cell's arguments at full depth (`full`:
+    the model's parameters, on the meta device), from their placements:
+    `param_bytes_per_rank`, and `grad_bytes_per_rank` and
+    `moment_bytes_per_rank` (train) or `cache_bytes_per_rank` (decode)."""
+    cell = SHAPES[shape]
+    named = dict(full.named_parameters())
+    specs = SH.param_specs(cfg, {n: tuple(p.shape) for n, p in
+                                 named.items()}, mesh, rules)
+    out = {"param_bytes_per_rank": _bytes_per_rank(named, specs, mesh)}
+    if cell.kind == "train":
+        out["grad_bytes_per_rank"] = out["param_bytes_per_rank"]
+        mbytes = 2 if ocfg.moment_dtype == "bfloat16" else 4
+        out["moment_bytes_per_rank"] = 2 * mbytes * sum(
+            _local_numel(p.shape, specs[n], mesh) for n, p in named.items())
+    if cell.kind == "decode":
+        cache = D.init_cache(cfg, cell.global_batch, cell.seq_len,
+                             enc_len=min(cell.seq_len, 32768), device="meta")
+        out["cache_bytes_per_rank"] = _bytes_per_rank(
+            cache, SH.cache_specs(cache, mesh, rules), mesh)
+    return out
+
+
 def run_cell(arch: str, shape: str, multi_pod: bool, cfg=None) -> dict:
     """The record of one cell (`cfg` overrides the arch's config: tests
     run smoke configs). Raises when the step fails (`main` records it)."""
@@ -481,22 +752,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool, cfg=None) -> dict:
     full = MODEL.param_shapes(cfg)
     with MESH.production_mesh(multi_pod=multi_pod) as mesh:
         rules, ocfg = _setup(SH.AxisRules(seq_axis=None), multi_pod, arch)
-        named = dict(full.named_parameters())
-        specs = SH.param_specs(cfg, {n: tuple(p.shape) for n, p in
-                                     named.items()}, mesh, rules)
-        rec["param_bytes_per_rank"] = _bytes_per_rank(named, specs, mesh)
-        if cell.kind == "train":
-            rec["grad_bytes_per_rank"] = rec["param_bytes_per_rank"]
-            mbytes = 2 if ocfg.moment_dtype == "bfloat16" else 4
-            rec["moment_bytes_per_rank"] = 2 * mbytes * sum(
-                _local_numel(p.shape, specs[n], mesh)
-                for n, p in named.items())
-        if cell.kind == "decode":
-            cache = D.init_cache(cfg, cell.global_batch, cell.seq_len,
-                                 enc_len=min(cell.seq_len, 32768),
-                                 device="meta")
-            rec["cache_bytes_per_rank"] = _bytes_per_rank(
-                cache, SH.cache_specs(cache, mesh, rules), mesh)
+        rec.update(held_bytes(cfg, full, shape, mesh, rules, ocfg))
         probes = [_step(probe_cfg(cfg, b), cell, shape, mesh, rules, ocfg)
                   for b in (1, 2)]
         rec["n_devices"] = mesh.size()

@@ -90,6 +90,14 @@ def init_cache(cfg: ModelConfig, batch: int, ctx_len: int,
 
 # ---------------------------------------------------------------- per-step --
 
+def write_kv(ck, cv, k_new, v_new, slot) -> None:
+    """Row b's new key and value k_new/v_new [B, 1, K, h] into the caches
+    ck/cv [B, Wc|S, K, h] at position slot[b], in place."""
+    rows = torch.arange(ck.shape[0], device=ck.device)
+    ck[rows, slot.long()] = k_new[:, 0]
+    cv[rows, slot.long()] = v_new[:, 0]
+
+
 def _attn_decode(cfg: ModelConfig, attn: L.Attention, x, positions, ck, cv,
                  *, window: int):
     """x: [B,1,D]; ck/cv: [B, Wc|S, K, h], written in place at the token's
@@ -100,9 +108,7 @@ def _attn_decode(cfg: ModelConfig, attn: L.Attention, x, positions, ck, cv,
     k_new = L.rope(k_new, pos2, cfg.rope_theta)
     wc = ck.shape[1]
     slot = positions % wc if window else positions.clamp(max=wc - 1)
-    rows = torch.arange(x.shape[0], device=x.device)
-    ck[rows, slot.long()] = k_new[:, 0]
-    cv[rows, slot.long()] = v_new[:, 0]
+    write_kv(ck, cv, k_new, v_new, slot)
     clen = (positions + 1).clamp(max=wc).to(torch.int32)
     out = L.decode_attention(q, ck, cv, clen,
                              logit_cap=cfg.attn_logit_softcap)

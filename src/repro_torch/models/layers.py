@@ -122,18 +122,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: torch.Tensor, *,
-                     logit_cap: float = 0.0) -> torch.Tensor:
+                     logit_cap: float = 0.0, return_lse: bool = False):
     """Single-token attention against a cache, through the kernel wrapper.
 
     q: [B, 1, H, h]; caches: [B, S, K, h]; cache_len: int32[B] valid lengths
     (ring-buffer local layers pass the full window). A row with
-    cache_len 0 gives zeros (the kernel's semantics).
+    cache_len 0 gives zeros (the kernel's semantics). With `return_lse`
+    (out, lse [B, 1, H]), both fp32: the output not rounded and each
+    head's log-sum-exp of its scores (-inf where cache_len is 0), for
+    `combine_partials`.
     """
     b, _, hq, hd = q.shape
     hk = k_cache.shape[2]
     out = ops.decode_attention(q.reshape(b, hk, hq // hk, hd), k_cache,
-                               v_cache, cache_len, logit_cap=logit_cap)
-    return out.reshape(b, 1, hq, hd)
+                               v_cache, cache_len, logit_cap=logit_cap,
+                               return_lse=return_lse)
+    if not return_lse:
+        return out.reshape(b, 1, hq, hd)
+    out, lse = out
+    return out.reshape(b, 1, hq, hd), lse.reshape(b, 1, hq)
+
+
+def combine_partials(outs: torch.Tensor, lses: torch.Tensor,
+                     dtype=None) -> torch.Tensor:
+    """The attention over a cache cut into n sequence shards from each
+    shard's: outs [n, ..., h] (each shard's softmax-weighted V, normalized
+    over the shard, unrounded fp32 as `decode_attention(return_lse=True)`
+    gives it) and lses [n, ...] (their log-sum-exps) -> [..., h] in
+    `dtype` (outs' by default). Each shard weighs exp(lse_i - max lse),
+    summed over the shards in fp32; a shard with no valid position (lse
+    -inf) weighs 0, and with none anywhere the result is 0, as a row with
+    cache_len 0 gives."""
+    top = lses.amax(0)
+    top = torch.where(torch.isfinite(top), top, 0.0)
+    w = torch.exp(lses - top)                                   # [n, ...]
+    acc = (w[..., None] * outs.float()).sum(0)
+    out = acc / w.sum(0).clamp_min(1e-30)[..., None]
+    return out.to(dtype or outs.dtype)
 
 
 # ---------------------------------------------------------------- modules --

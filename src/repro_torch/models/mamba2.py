@@ -209,11 +209,19 @@ def ssm_decode_step(params: SSM, x: torch.Tensor, cache: dict,
     cmat = xc[:, di + n:]
     dt = F.softplus(dt_raw.float() + params.dt_bias)             # [b,h]
     a = -torch.exp(params.a_log)
-    decay = torch.exp(dt * a)                                    # [b,h]
-    state = cache["state"] * decay[:, :, None, None] + \
-        (dt[:, :, None] * xs)[..., None] * bmat[:, None, None, :]
-    y = torch.einsum("bn,bhpn->bhp", cmat, state)
+    y, state = ssm_recur(cache["state"], xs, dt, a, bmat, cmat)
     y = y + xs * params.d_skip[None, :, None]
     y = _gated_norm(y.reshape(b, di), z, params.norm, cfg.norm_eps)
     out = y.to(x.dtype) @ params.out_proj
     return out[:, None], {"state": state, "conv": hist[:, 1:]}
+
+
+def ssm_recur(state, xs, dt, a, bmat, cmat):
+    """The recurrence of one token: state [B,H,P,N] fp32 decayed by
+    exp(dt * a) (dt [B,H], a [H]) plus (dt * x) [B,H,P] times B [B,N]; its
+    read-out y [B,H,P] = C [B,N] . state. -> (y, new state); `state` is
+    not written."""
+    decay = torch.exp(dt * a)                                    # [b,h]
+    state = state * decay[:, :, None, None] + \
+        (dt[:, :, None] * xs)[..., None] * bmat[:, None, None, :]
+    return torch.einsum("bn,bhpn->bhp", cmat, state), state

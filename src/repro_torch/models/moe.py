@@ -6,7 +6,8 @@ and scattered into a dense [E, C, D] buffer (capacity C from
 `capacity_factor`; an assignment ranked past C is dropped, standard for
 capacity-factor MoE). The three expert products run as batched matrix
 products over the E axis, and the outputs are gathered back, scaled by
-the renormalised gates and summed per token.
+the renormalised gates and summed per token in top-k order (the same
+bits on every device).
 
 `moe_ffn_a2a` is the JAX package's expert-parallel schedule: tokens stay
 on their rank, one all-to-all over the `model` axis takes each to the
@@ -110,16 +111,27 @@ def _experts(buf, wg, wi, wo):
     return torch.bmm(gate * up, wo)
 
 
-def _combine(out, gates, order, tok_sorted, slot, keep, t: int):
+def _combine(out, gates, order, slot, keep, t: int):
     """y [T, D]: each kept assignment's expert output out [E*C, D],
-    scaled by its gate and summed into its token."""
+    scaled by its gate and summed into its token in a fixed order. The
+    scaled contributions go back to their (token, k) places (`order` is a
+    permutation, so this moves them exactly) and each token's k are added
+    one at a time in top-k order, in the outputs' dtype. Each add rounds
+    alike everywhere, so the result is the same bits on every device and
+    run: an `index_add_` on a card sums in no fixed order, and a `sum`
+    over k adds in fp32 in whatever order each device's reduction takes."""
     safe_slot = slot.clamp(max=out.shape[0] - 1)
     contrib = torch.where(keep[:, None], out[safe_slot], 0)
     contrib = SH.constrain_spec(contrib, "batch", None)
     g_sorted = gates.reshape(-1)[order]
     contrib = contrib * g_sorted[:, None].to(contrib.dtype)
-    y = torch.zeros((t, out.shape[1]), dtype=out.dtype, device=out.device)
-    y.index_add_(0, tok_sorted, contrib)
+    k = gates.shape[1]
+    by_token = torch.empty_like(contrib)
+    by_token[order] = contrib
+    by_token = by_token.reshape(t, k, -1)
+    y = by_token[:, 0]
+    for j in range(1, k):
+        y = y + by_token[:, j]
     return SH.constrain_spec(y, "batch", None)
 
 
@@ -135,8 +147,7 @@ def moe_ffn(params: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     buf = _dispatch(xf, slot, tok_sorted, e * c).reshape(e, c, d)
     buf = SH.constrain_spec(buf, "tp", None, None)   # experts on model (EP)
     out = _experts(buf, params.wg, params.wi, params.wo).reshape(e * c, d)
-    return _combine(out, gates, order, tok_sorted, slot, keep,
-                    t).reshape(b, s, d)
+    return _combine(out, gates, order, slot, keep, t).reshape(b, s, d)
 
 
 # ---------------------------------------------------- explicit-a2a dispatch --
@@ -230,8 +241,8 @@ def moe_ffn_a2a(params: MoE, x: torch.Tensor,
         out = _experts(buf, wg, wi, wo)
         out = out.reshape(e_loc, p_model, cap, d).transpose(0, 1)
         back = _all_to_all(out.reshape(p_model * e_loc * cap, d), m_group)
-        return _combine(back, gates, order, tok_sorted, slot, keep,
-                        t).reshape(bl, sl, d)
+        y = _combine(back, gates, order, slot, keep, t)
+        return y.reshape(bl, sl, d)
 
     bat = rules.batch_axes or None
     fs = fsdp or None

@@ -254,7 +254,9 @@ def test_decode_attention_kernel_matches_plain_on_cuda():
     length that ends inside a split). A second call on the same inputs
     gives the same bits. Then with q scaled to reach the cap, where the
     kernel's cap-50 output matches the plain one and is far from its cap-0
-    output. Last, caches that start 2 bytes past a 16-byte boundary."""
+    output. Last, caches that start 2 bytes past a 16-byte boundary. Each
+    call also with the lse: the same output unrounded (fp32) and the lse
+    against the plain one within the fp32 tolerance."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (run on the GPU host)")
     dev = torch.device("cuda")
@@ -282,6 +284,18 @@ def test_decode_attention_kernel_matches_plain_on_cuda():
                                            rtol=rtol, atol=atol)
                 assert torch.equal(ops.decode_attention(*args, lens,
                                                         logit_cap=cap), got)
+                # with the lse: the same value unrounded, the lse within
+                # the fp32 tolerance (-inf at cache_len 0)
+                o32, lse = ops.decode_attention(*args, lens, logit_cap=cap,
+                                                return_lse=True)
+                _, want_lse = tda.decode_attention_plain(
+                    *args, lens, logit_cap=cap, return_lse=True)
+                assert o32.dtype == torch.float32
+                assert torch.equal(o32.to(dtype), got)
+                empty = (lens <= 0)[:, None, None].expand_as(lse)
+                assert bool(torch.isneginf(lse[empty]).all())
+                torch.testing.assert_close(lse[~empty], want_lse[~empty],
+                                           rtol=F32_TOL, atol=F32_TOL)
             if s > 1:
                 args[0] = args[0] * CAP_SCALE
                 lens.fill_(s)

@@ -173,8 +173,13 @@ def test_sharded_forwards_swap_only_inside(raises):
     inside, a plain tensor still takes the plain function."""
     import torch
     from repro_torch.models import layers as L
+    from repro_torch.models import decode as D
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models import moe as MOE
     names = ((L, "project"), (L, "_out"), (L, "_mlp"),
-             (L, "flash_attention"), (MODEL, "_gold"))
+             (L, "flash_attention"), (MODEL, "_gold"),
+             (L, "decode_attention"), (D, "write_kv"), (M, "ssm_recur"),
+             (MOE, "moe_ffn"))
     plain = {key: getattr(*key) for key in names}
     x, w = torch.ones(1, 2, 3), torch.ones(3, 4, 5)
     try:

@@ -122,3 +122,34 @@ def test_stacked_weight_draws_one_entry_at_a_time():
         assert torch.equal(stack[i], want)
     empty = L.stacked_weight(3, (4, 5), 0.5, torch.float32)
     assert empty.shape == (3, 4, 5) and not empty.requires_grad
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b",
+                                  "llama4_maverick_400b_a17b"])
+def test_combine_sums_in_a_fixed_order(arch):
+    """bf16, capacity factor 0.5, half the tokens repeats of one row (so
+    they route alike and their experts overflow): the combine is, bit for
+    bit, each token's kept contributions (expert output times gate, in
+    bf16) added one at a time to zero in top-k order."""
+    _, tcfg = _configs(arch, capacity_factor=0.5)
+    _, mod = _experts(*_configs(arch), 8)
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((40, tcfg.d_model)).astype(np.float32)
+    x[20:] = x[0]
+    x = torch.from_numpy(x)
+    gates, order, _, tok_sorted, slot, keep = MOE.route(mod, x, tcfg)
+    assert int((~keep).sum()) > 0
+    e, c, k = tcfg.n_experts, MOE.capacity(tcfg, 40), tcfg.top_k
+    out = torch.from_numpy(rng.standard_normal(
+        (e * c, tcfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    got = MOE._combine(out, gates, order, slot, keep, 40)
+    # sorted position of assignment (token t, choice j) = t * k + j
+    where = {int(a): i for i, a in enumerate(order)}
+    want = torch.zeros((40, tcfg.d_model), dtype=torch.bfloat16)
+    for t in range(40):
+        for j in range(k):
+            i = where[t * k + j]
+            assert int(tok_sorted[i]) == t
+            contrib = out[slot[i]] if keep[i] else torch.zeros_like(out[0])
+            want[t] = want[t] + contrib * gates[t, j].to(torch.bfloat16)
+    assert torch.equal(got, want)
