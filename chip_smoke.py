@@ -73,9 +73,11 @@ a nonzero exit; nothing is caught):
    decode steps on the card against the same weights on the CPU: equal
    tokens, logits within 1e-4.
 4. The paths at full size, through `Engine.bfs` on Graph500 RMAT at
-   --scale (generated once): unsplit (8 roots batched, then 4 in Graph500
-   mode), hub split (the same), and 2 roots through the stepper (each on
-   a fresh bucket warms first, inside the path's run), on a session with
+   --scale (generated once, on the host in a process of its own while
+   phases 1-3b run, and loaded from its file): unsplit (8 roots batched,
+   then 4 in Graph500 mode), hub split (the same), and 2 roots through
+   the stepper (each on a fresh bucket warms first, inside the path's
+   run), on a session with
    `RuntimeConfig(strict_contracts=True)`: every plan passes the kernel-
    contract gate, no warning. A strict session with a 16 KiB budget then
    refuses the cohort plan (`KernelBudgetError`) before any launch. Launch
@@ -118,7 +120,7 @@ a nonzero exit; nothing is caught):
    compute_s / exchange_s for psum and bitmap, agg_s, the bytes a level on
    the wire, the group's backend. Then, on the same ranks, sharded
    serving: rank 0 serves through `BFSServer(front=PartitionFront(group))`
-   and ranks 1-3 run `partition_front.follow`; 4 clients x 3 queries x 2
+   and ranks 1-3 run `partition_front.follow`; 2 clients x 3 queries x 2
    roots, every 3rd query streamed on the partitioned stepper, alternating
    between the psum and the bitmap exchange. Each rank's launch counts are
    zeroed just before the load and read just after: rows 5-7 must launch
@@ -140,7 +142,7 @@ a nonzero exit; nothing is caught):
    serve both: checked in each session's `cache_info` and by identity,
    with the peak device memory over the load and the bytes of the one
    CSR and the one tile set),
-   `bfs_serve.run_load` with 8 clients x 4 queries x 4 roots,
+   `bfs_serve.run_load` with 4 clients x 4 queries x 4 roots,
    every 4th query streamed (the stepper), queue depth 64, 16 in flight a
    client; launch counts zeroed after run_load's warm-ups, just before the
    clients start, and read just after: rows 1-3 (the fused dispatches)
@@ -256,7 +258,27 @@ a nonzero exit; nothing is caught):
    first step's blocks of y and x's gradient are held against `moe_ffn`
    on the card run on each rank's own tokens, which takes that rank's
    capacity and drops what it drops (within rtol = atol = 2e-2, bf16).
-9. One JSON line listing the kernels, then the result line.
+9. Sequence parallelism (no kernel on this path): hymba-1.5b at every
+   published width (d 1,600, 25 query and 5 KV heads, neither dividing 4;
+   vocab 32,001, which does not divide 4 either, so the CE takes its
+   sequence fallback; the SSD beside the attention), 2 of its 32 layers,
+   fp32, on P = 4 gloo ranks sharing the card as a 1 x 4 (data, model)
+   mesh, through `launch.dryrun.sharded_forwards` (`on_mesh`): each rank
+   builds the model from --seed and keeps its shards. A prefill of 1 x
+   4,096 tokens (the sequence on `model` between layers, each rank
+   attending for its block of queries over the gathered keys and values,
+   the SSD's heads split over `model`): its last logits against the
+   unsharded prefill on the card (rtol = atol = 1e-5). One `train_step`
+   on the same tokens: its loss within 1e-5 relative, and each
+   parameter's gradient (each rank's block, captured where the step
+   hands the gradients to AdamW) within max |err| <= 1e-4 x max |grad|,
+   of the unsharded train step on the card, run after the ranks exit.
+   Printed beside the card: prefill and step seconds (the slowest rank),
+   the sequence bytes a rank all-gathers and reduce-scatters in forward
+   (backward mirrors them) and the weight bytes it gathers, each rank's
+   peak memory. A record, not a claim: the ranks share one card and
+   exchange through the host.
+10. One JSON line listing the kernels, then the result line.
 
 `--out FILE` also writes the full record (timings, shapes, profiles) as
 JSON.
@@ -373,6 +395,15 @@ MOE_TOL = dict(rtol=2e-5, atol=2e-5)        # y and x's gradient
 MOE_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)   # the weights' gradients
 MOE_BF16_TOL = dict(rtol=2e-2, atol=2e-2)   # 8b: y and x's gradient
 MOE_WEIGHTS = ("router", "wg", "wi", "wo")
+# Phase 9: hymba-1.5b's sequence-parallel prefill and train step at every
+# published width, cut to 2 layers, fp32, on P = 4 gloo ranks sharing the
+# card as a 1 x 4 (data, model) mesh.
+SEQ_ARCH = "hymba-1-5b"
+SEQ_MESH = (1, 4)
+SEQ_RUN = dict(layers=2, batch=1, seq=4096)
+SEQ_LOGITS_TOL = dict(rtol=1e-5, atol=1e-5)
+SEQ_LOSS_RTOL = 1e-5
+SEQ_GRAD_TOL = 1e-4                 # of the gradient's largest |entry|
 BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 # device ops that are matrix products, by a part of their kernel's name
 MATMUL_KEYS = ("gemm", "matmul", "cutlass", "xmma", "cublas", "nvjet")
@@ -1741,10 +1772,21 @@ def profile_device(fn, top=12):
                      for k, (ms, n) in rows[:top]])
 
 
-def bfs_paths(args, rng, dev, record, errs):
-    """Phases 4, 2b and 5: the BFS paths on Graph500 RMAT at --scale.
-    Returns the kernels line's entries of the ten BFS kernel entries and
-    the graph (host arrays only)."""
+def generate_graph(scale: int, seed: int, path: str) -> float:
+    """Phase 4's Graph500 RMAT graph, generated on the host in a process of
+    its own (while phases 1-3b run) and saved to `path`: its seconds."""
+    sys.path.insert(0, os.path.join(REPO, "src"))
+    from repro_torch.core import graph as G
+    t0 = time.perf_counter()
+    save_graph(G.rmat(scale, seed=seed), path)
+    return time.perf_counter() - t0
+
+
+def bfs_paths(args, rng, dev, record, errs, graph):
+    """Phases 4, 2b and 5: the BFS paths on Graph500 RMAT at --scale, from
+    `graph` (the future of `generate_graph` and its file). Returns the
+    kernels line's entries of the ten BFS kernel entries and the graph
+    (host arrays only)."""
     import warnings
 
     import torch
@@ -1757,8 +1799,11 @@ def bfs_paths(args, rng, dev, record, errs):
     from repro_torch.core.bfs import BFSConfig
     from repro_torch.runtime import RuntimeConfig
     t0 = time.perf_counter()
-    g = G.rmat(args.scale, seed=args.seed)
-    record["graph_s"] = time.perf_counter() - t0
+    future, path = graph
+    record["graph_s"] = future.result()
+    record["graph_wait_s"] = time.perf_counter() - t0
+    g = load_graph(path)
+    record["graph_load_s"] = time.perf_counter() - t0 - record["graph_wait_s"]
     # strict: a plan whose kernels fail their contract would raise
     engine = Engine(g, runtime=RuntimeConfig(strict_contracts=True))
     t1 = time.perf_counter()
@@ -1776,7 +1821,9 @@ def bfs_paths(args, rng, dev, record, errs):
         hub_buckets=[list(t.nbrs.shape) for t in hub_tiles])
     log(f"phase 4: RMAT scale {args.scale}: V={g.num_vertices} "
         f"E={g.num_directed_edges} directed; generation "
-        f"{record['graph_s']:.1f} s, device graph + ELL "
+        f"{record['graph_s']:.1f} s beside phases 1-3b (waited "
+        f"{record['graph_wait_s']:.1f} s, loaded in "
+        f"{record['graph_load_s']:.1f} s), device graph + ELL "
         f"{record['session_s']:.1f} s; hub (degree > "
         f"{record['graph']['hub_floor']}): {record['graph']['hub_rows']} "
         f"rows in buckets {record['graph']['hub_buckets']}")
@@ -1996,11 +2043,11 @@ SHARDED_NOTE = ("P ranks time-share one H100 and exchange through gloo "
                 "(host memory); not a multi-GPU figure")
 RANK_TIMEOUT = 900                # seconds a spawn of ranks may take
 # Phase 5s's served load on the full-size ranks: rank 0 is the front
-# (`BFSServer(front=PartitionFront(group))`), ranks 1-3 `follow`; 4 clients
+# (`BFSServer(front=PartitionFront(group))`), ranks 1-3 `follow`; 2 clients
 # x 3 queries x 2 roots, every 3rd query streamed on the partitioned
 # stepper, the queries alternating between the psum and the bitmap
 # exchange (two plans, so coalescing is keyed by plan).
-SHARDED_LOAD = dict(clients=4, queries_per_client=3, batch=2, stream_every=3)
+SHARDED_LOAD = dict(clients=2, queries_per_client=3, batch=2, stream_every=3)
 # The probes on the phase-3 graph, each followed by a served query:
 # (name, fault schedule, the query is streamed, the front's outcome).
 SHARDED_PROBES = (
@@ -2479,10 +2526,10 @@ def sharded_phase(args, g16, g22, rng, record, entries, path22):
 # ------------------------------------------------------------ the server --
 
 # Phase 5v's load: two sessions ("replicas" of the --scale graph, sharing
-# one CSR, one tile set and one plan set), 8 clients x 4 queries x 4
+# one CSR, one tile set and one plan set), 4 clients x 4 queries x 4
 # roots, every 4th query streamed, queue depth 64, 16 queries in flight a
 # client.
-SERVER_LOAD = dict(clients=8, queries_per_client=4, batch=4, stream_every=4)
+SERVER_LOAD = dict(clients=4, queries_per_client=4, batch=4, stream_every=4)
 SERVER_CAPS = dict(max_queue_depth=64, max_inflight_per_client=16)
 SERVER_KERNELS = {"batch": ("bottomup_batch", "topdown_push_batch",
                             "frontier_fused_batch"),
@@ -3770,6 +3817,226 @@ def moe_phase(args, dev, record):
         f"claim]")
 
 
+def seq_model(seed: int, dev):
+    """Phase 9's config (fp32, SEQ_RUN's layers) and its model on `dev`,
+    drawn from `seed` there (the same weights in every process)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as MODEL
+    cfg = dataclasses.replace(get_config(SEQ_ARCH), dtype="float32",
+                              n_layers=SEQ_RUN["layers"])
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return cfg, MODEL.init_params(cfg, g, device=dev)
+
+
+def seq_batch(seed: int, cfg, dev) -> dict:
+    """Phase 9's tokens and labels [B, S] (int32), from `seed`."""
+    import torch
+    from repro_torch.data import synthetic as SYN
+    b = SYN.batch_for_config(cfg, 0, SEQ_RUN["batch"], SEQ_RUN["seq"], seed)
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def seq_steps(cfg, model, batch, dev, ctx=None) -> dict:
+    """The prefill's last logits and one train step's loss and gradients
+    (captured where `train_step` hands them to `apply_updates`), with
+    their seconds, under `ctx` (the mesh's, or none)."""
+    import contextlib
+    import torch
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.serve_step import make_prefill_step
+    ctx = ctx or contextlib.nullcontext
+    prompt = {k: v for k, v in batch.items() if k != "labels"}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    sync()
+    t0 = time.perf_counter()
+    with ctx():
+        logits, _ = make_prefill_step(cfg, ctx_len=SEQ_RUN["seq"])(
+            model, prompt)
+    sync()
+    t1 = time.perf_counter()
+    grads = {}
+    real = TS.apply_updates
+
+    def capture(params, g, state, ocfg):
+        grads.update(g)
+        return real(params, g, state, ocfg)
+    TS.apply_updates = capture
+    try:
+        ocfg = OptConfig()
+        opt = init_opt_state(model, ocfg)
+        sync()
+        t2 = time.perf_counter()
+        with ctx():
+            _, _, metrics = TS.make_train_step(cfg, ocfg)(model, opt, batch)
+        sync()
+        t3 = time.perf_counter()
+    finally:
+        TS.apply_updates = real
+    return dict(logits=logits, loss=metrics["loss"], grads=grads,
+                prefill_s=t1 - t0, step_s=t3 - t2)
+
+
+def seq_rank(rank, group, device, seed, tmp):
+    """Phase 9 on one rank: the sharded prefill and train step; rank 0
+    saves the logits and loss, every rank its blocks of the gradients
+    (with their specs), to `tmp`."""
+    import torch
+    from torch.distributed.tensor import Replicate
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import sharding as SH
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = MESH.make_debug_mesh(*SEQ_MESH, device_type=device.type)
+    rules = SH.AxisRules()
+    cfg, model = seq_model(seed, device)
+    specs = SH.param_specs(cfg, {n: tuple(p.shape) for n, p in
+                                 model.named_parameters()}, mesh, rules)
+    model = DR.shard_model(model, cfg, mesh, rules)
+    batch = DR.shard_batch(seq_batch(seed, cfg, device), mesh, rules)
+    moved = {"seq_gathered": 0, "seq_scattered": 0, "weights_gathered": 0}
+    real = {k: getattr(C, k) for k in ("gather_seq", "reduce_scatter_seq")}
+
+    def gather(t, dim, group):
+        out = real["gather_seq"](t, dim, group)
+        key = "seq_gathered" if t.ndim >= 3 else "weights_gathered"
+        moved[key] += out.numel() * out.element_size()
+        return out
+
+    def scatter(t, dim, group):
+        moved["seq_scattered"] += t.numel() * t.element_size()
+        return real["reduce_scatter_seq"](t, dim, group)
+    C.gather_seq, C.reduce_scatter_seq = gather, scatter
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    try:
+        res = seq_steps(cfg, model, batch, device,
+                        lambda: DR.on_mesh(mesh, rules))
+    finally:
+        C.gather_seq = real["gather_seq"]
+        C.reduce_scatter_seq = real["reduce_scatter_seq"]
+    path = os.path.join(tmp, f"seq{rank}")
+    if rank == 0:
+        np.save(f"{path}.logits.npy", res["logits"].to_local().cpu().numpy())
+    names = []
+    for i, (name, g) in enumerate(res["grads"].items()):
+        # a gradient left a partial sum (a replicated weight's) is summed
+        # over the ranks here (an all-reduce); shards stay as they are
+        g = g.redistribute(g.device_mesh, [Replicate() if p.is_partial()
+                                           else p for p in g.placements])
+        np.save(f"{path}.g{i}.npy", g.to_local().detach().cpu().numpy())
+        names.append((name, specs[name]))
+    return dict(path=path, grads=names, model_rank=mesh.get_local_rank(
+        "model"), loss=float(res["loss"].to_local()),
+        prefill_s=res["prefill_s"], step_s=res["step_s"], moved=moved,
+        peak_bytes=torch.cuda.max_memory_allocated(device) if on_card else 0)
+
+
+def seq_block(t, spec, model_rank: int, n: int):
+    """The block of the whole tensor `t` that `spec` gives the rank at
+    `model_rank` of a `model` axis of n (the `data` axis is 1)."""
+    for dim, ax in enumerate(spec):
+        if ax == "model" or (isinstance(ax, tuple) and "model" in ax):
+            t = t.chunk(n, dim)[model_rank]
+    return t
+
+
+def seq_phase(args, dev, record):
+    """Phase 9: hymba-1.5b's sequence-parallel prefill and train step on
+    gloo ranks sharing the card, held against the unsharded steps run on
+    the card after the ranks exit."""
+    import tempfile
+    import torch
+    from repro_torch.parallel import ranks
+    n = SEQ_MESH[0] * SEQ_MESH[1]
+    rec = record["seq_parallel"] = dict(mesh=list(SEQ_MESH), **SEQ_RUN,
+                                        card=record["card"])
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_seq_") as tmp:
+            outs = ranks.run_ranks(seq_rank, n, tmp, args=(args.seed, tmp),
+                                   backend="gloo", device=dev.type,
+                                   timeout=RANK_TIMEOUT)
+            rec["ranks_s"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            cfg, model = seq_model(args.seed, dev)
+            want = seq_steps(cfg, model, seq_batch(args.seed, cfg, dev), dev)
+            logits = torch.from_numpy(np.load(
+                f"{outs[0]['path']}.logits.npy")).to(dev)
+            err = (logits - want["logits"]).abs()
+            assert bool(torch.isfinite(logits).all()), \
+                "phase 9: prefill logits not finite"
+            assert bool((err <= SEQ_LOGITS_TOL["atol"] + SEQ_LOGITS_TOL[
+                "rtol"] * want["logits"].abs()).all()), (
+                f"phase 9: prefill logits: max |err| {float(err.max())}")
+            rec["logits_max_abs_err"] = float(err.max())
+            loss = float(want["loss"])
+            rec["loss"], rec["loss_unsharded"] = outs[0]["loss"], loss
+            assert abs(outs[0]["loss"] - loss) <= SEQ_LOSS_RTOL * abs(loss), \
+                f"phase 9: loss {outs[0]['loss']} against {loss}"
+            worst = 0.0
+            for o in outs:
+                assert len(o["grads"]) == len(want["grads"]), \
+                    "phase 9: a gradient is missing"
+                for i, (name, spec) in enumerate(o["grads"]):
+                    ref = want["grads"][name]
+                    top = float(ref.abs().max())
+                    got = torch.from_numpy(np.load(
+                        f"{o['path']}.g{i}.npy")).to(dev)
+                    blk = seq_block(ref, spec, o["model_rank"], n)
+                    assert got.shape == blk.shape, (name, got.shape)
+                    e = float((got - blk).abs().max())
+                    assert np.isfinite(e) and e <= SEQ_GRAD_TOL * top, (
+                        f"phase 9: {name}'s gradient on rank "
+                        f"{o['model_rank']}: max |err| {e} of max |grad| "
+                        f"{top}")
+                    worst = max(worst, e / top if top else 0.0)
+            rec["grad_max_rel_err"] = worst
+            rec["unsharded"] = dict(prefill_s=want["prefill_s"],
+                                    step_s=want["step_s"])
+            del model, want
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            rec["check_s"] = time.perf_counter() - t1
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    rec["prefill_s"] = max(o["prefill_s"] for o in outs)
+    rec["step_s"] = max(o["step_s"] for o in outs)
+    rec["moved_bytes_per_rank"] = outs[0]["moved"]
+    rec["peak_bytes"] = [o["peak_bytes"] for o in outs]
+    mv = outs[0]["moved"]
+    log(f"phase 9: {cfg.name} sequence parallel ({cfg.n_layers} of 32 "
+        f"layers at every published width: d {cfg.d_model}, {cfg.n_heads} "
+        f"query and {cfg.n_kv} KV heads, vocab {cfg.vocab}, fp32), batch "
+        f"{SEQ_RUN['batch']} x {SEQ_RUN['seq']} on {n} gloo ranks sharing "
+        f"the card ({SEQ_MESH[0]} x {SEQ_MESH[1]} data x model): prefill "
+        f"{rec['prefill_s']:.3f} s (unsharded "
+        f"{rec['unsharded']['prefill_s']:.3f} s), train step "
+        f"{rec['step_s']:.3f} s (unsharded {rec['unsharded']['step_s']:.3f} "
+        f"s); the last logits within "
+        f"{rec['logits_max_abs_err']:.3g} of the unsharded prefill's, loss "
+        f"{rec['loss']:.6f} against {rec['loss_unsharded']:.6f}, every "
+        f"gradient within {rec['grad_max_rel_err']:.3g} of its max |grad|; "
+        f"a rank all-gathers {mv['seq_gathered']} B of sequence and "
+        f"reduce-scatters {mv['seq_scattered']} B in forward (prefill and "
+        f"step; backward mirrors them), gathers {mv['weights_gathered']} B "
+        f"of weights; peak "
+        + ", ".join(f"{b / 2**30:.2f}" for b in rec["peak_bytes"])
+        + f" GiB by rank [{record['card']}; {n} gloo ranks on one card, a "
+        f"record, not a claim]; ranks {rec['ranks_s']:.1f} s, check "
+        f"{rec['check_s']:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3790,6 +4057,15 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
     record = dict(seed=args.seed, scale=args.scale)
+    # phase 4's graph, generated on the host while phases 1-3b run
+    import concurrent.futures
+    import multiprocessing
+    import tempfile
+    gdir = tempfile.TemporaryDirectory(prefix="chip_smoke_graph_")
+    graph_pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    graph_future = graph_pool.submit(generate_graph, args.scale, args.seed,
+                                     os.path.join(gdir.name, "full.npz"))
 
     # 1. device
     smi = subprocess.run(
@@ -3857,14 +4133,16 @@ def main() -> int:
 
     # 4, 2b, 5: the BFS paths at full size (their tensors are freed on
     # return, before the ranks and the serving path need the card's memory)
-    entries, g22 = bfs_paths(args, rng, dev, record, errs)
+    entries, g22 = bfs_paths(args, rng, dev, record, errs,
+                             (graph_future, os.path.join(gdir.name,
+                                                         "full.npz")))
+    graph_pool.shutdown()
     gc.collect()
     torch.cuda.empty_cache()
 
-    import tempfile
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as gdir:
+    with gdir:
         # 5s. the partitioned BSP search on gloo ranks sharing the card
-        path22 = os.path.join(gdir, "full.npz")
+        path22 = os.path.join(gdir.name, "full.npz")
         t0 = time.perf_counter()
         sharded_phase(args, g16, g22, rng, record, entries, path22)
         record["sharded_s"] = time.perf_counter() - t0
@@ -3910,6 +4188,15 @@ def main() -> int:
     moe_phase(args, dev, record)
     record["moe_s"] = time.perf_counter() - t0
     log(f"phase 8: {record['moe_s']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9. hymba-1.5b's sequence-parallel prefill and train step on gloo
+    # ranks sharing the card
+    t0 = time.perf_counter()
+    seq_phase(args, dev, record)
+    record["seq_s"] = time.perf_counter() - t0
+    log(f"phase 9: {record['seq_s']:.1f} s")
     record["total_s"] = time.perf_counter() - t_start
     log(f"total {record['total_s']:.1f} s")
     if args.out:
@@ -3917,7 +4204,7 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
 
-    # 9. the kernels line, then the result line
+    # 10. the kernels line, then the result line
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,9 +6,9 @@ For each cell this shows that the sharding rules hold together at
 production scale (every parameter, input and cache takes its placements,
 the step runs on them) and records what a rank would hold, compute and
 send. The mesh lives in a `fake` process group (`launch.mesh.fake_world`:
-this process is rank 0 of 256 or 512) and every tensor is a `FakeTensor`
-(`torch._subclasses.fake_tensor.FakeTensorMode`): shapes, dtypes and
-placements, no storage. Nothing is timed and nothing is lowered.
+this process is the last rank of 256 or 512) and every tensor is a
+`FakeTensor` (`torch._subclasses.fake_tensor.FakeTensorMode`): shapes,
+dtypes and placements, no storage. Nothing is timed and nothing is lowered.
 
 A record holds, beside `arch`, `shape`, `mesh`, `status` (`ok`,
 `skipped` with `cell_applicable`'s reason, or `error` with the exception
@@ -39,23 +39,28 @@ Shard(j) redistribution as an all-gather and a chunk, so those count as
 all-gather bytes where a card would send an all-to-all (the explicit MoE
 all-to-alls of `moe_ffn_a2a` count as all-to-all).
 
-Where the dry-run departs from the reference's policy:
-  * sequence parallelism is off (`seq_axis` null): a matrix product over
-    a (batch, sequence) flattening sharded on two mesh dims has no
-    DTensor sharding rule. So the archs whose head counts do not divide
-    over `model` (yi-34b, internvl2, llama4, hymba, seamless) replicate
-    attention on every `model` rank, where the reference shards it by
-    sequence: their FLOPs and bytes a rank describe that fallback;
+The dry-run runs every cell under the reference's own rules
+(`AxisRules()`: batch on (pod, data), FSDP over `fsdp_axes`, tensor and
+expert parallelism over `model`, and sequence parallelism: the sequence on
+`model` between layers). Its counts are those of the last rank of the
+mesh: under sequence parallelism its block of queries sees every key, so
+it does the most causal attention work of any rank. Where it departs from
+the reference:
+  * the embedding's output enters the first layer with its sequence on
+    `model` (`_scatter_sequence`: each rank keeps its block, no
+    communication), where the reference leaves that dim to GSPMD;
   * the decode body for a cache whose head_dim is sharded (the partial
     scores all-reduced over `model`, `_head_dim_attention`) is plain
     PyTorch on every device: no kernel computes partial scores.
 
-The decode step runs on the caches `cache_specs` places
-(`_sharded_write_kv`, `_sharded_decode_attention`, `_sharded_ssm_recur`;
-the MoE at one token a row through `_sharded_moe_ffn`); the SSD's chunked
-scan of the train and prefill steps has no DTensor rule in some cells
-(`aten.bmm` on strided shards: mamba2's train_4k, hymba's multi-pod
-train_4k).
+The train and prefill steps run the bodies of `sharded_forwards` under
+sequence parallelism (the column- and row-parallel products gather the
+sequence and reduce-scatter it back, attention by heads or by blocks of
+queries, the SSD's chunked scan on the gathered sequence for a block of
+its heads, the CE's sequence fallback); the decode step runs on the
+caches `cache_specs` places (`_sharded_write_kv`,
+`_sharded_decode_attention`, `_sharded_ssm_recur`; the MoE at one token a
+row through `_sharded_moe_ffn`).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch stablelm-3b --shape train_4k
@@ -86,6 +91,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import model as MODEL
 from repro_torch.models import moe as MOE
+from repro_torch.parallel import collectives as C
 from repro_torch.parallel import sharding as SH
 from repro_torch.train.optimizer import OptConfig, init_opt_state
 from repro_torch.train.serve_step import make_decode_step, make_prefill_step
@@ -188,82 +194,240 @@ def shard_cache(cache: dict, mesh, rules) -> dict:
     return {k: SH.distribute(v, mesh, specs[k]) for k, v in cache.items()}
 
 
+def shard_batch(batch: dict, mesh, rules) -> dict:
+    """Each input (the whole tensor, the same on every rank) as a DTensor
+    of its `batch_specs` spec."""
+    specs = SH.batch_specs(batch, mesh, rules)
+    return {k: SH.distribute(v, mesh, specs[k]) for k, v in batch.items()}
+
+
 def _inputs(cfg, shape: str, mesh, rules) -> dict:
-    specs = input_specs(cfg, shape)
-    bspecs = SH.batch_specs(specs, mesh, rules)
-    return {k: SH.distribute(torch.zeros(v.shape, dtype=v.dtype), mesh,
-                           bspecs[k]) for k, v in specs.items()}
+    return shard_batch({k: torch.zeros(v.shape, dtype=v.dtype) for k, v in
+                        input_specs(cfg, shape).items()}, mesh, rules)
+
+
+@contextlib.contextmanager
+def on_mesh(mesh, rules):
+    """The model code run on DTensors of `mesh`: the mesh ambient with
+    `rules`, plain tensors taken as replicated, and `sharded_forwards`."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    with SH.activate(mesh, rules), implicit_replication(), \
+            sharded_forwards():
+        yield
 
 
 # ------------------------------------------------------- DTensor forwards
 #
 # DTensor has no sharding rule for some of the model's products: einsum
 # flattenings of a sharded dim, uneven head splits, a gather over a
-# vocab-sharded dim. While a cell runs, `sharded_forwards` swaps the
-# layers' module functions for versions that run them as blocks under
-# `local_map`; the model code keeps its one plain path.
+# vocab-sharded dim, the SSD's batched products on strided shards. While a
+# cell runs, `sharded_forwards` swaps the layers' module functions for
+# versions that run them as blocks under `local_map`; the model code keeps
+# its one plain path. Under sequence parallelism the activations between
+# layers come with their sequence on `model`: the blocks gather it and
+# scatter it back with the explicit collectives of `parallel/collectives.py`
+# (host-staged on gloo ranks that share a card), never through a DTensor
+# redistribution.
+
+def _axes(entry) -> tuple:
+    """The mesh axes of a spec entry (None, a name, or names)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _on_axis(t, mesh, axis, dim: int) -> bool:
+    """Whether DTensor t's dim `dim` is sharded over mesh axis `axis`."""
+    from torch.distributed.tensor import Shard
+    if axis is None:
+        return False
+    return t.placements[mesh.mesh_dim_names.index(axis)] == Shard(dim)
+
+
+def _ambient():
+    """`sharding._ambient()` for the sequence-parallel bodies. They sum the
+    partials of a split over the tensor-parallel axis (vocab, heads, d_ff)
+    in the same collective that gathers or scatters the sequence, over the
+    sequence axis's group, so the two axes must be one (`AxisRules()`:
+    both `model`) where the sequence is split."""
+    mesh, r = SH._ambient()
+    if r.seq_axis not in (None, r.tp_axis):
+        raise ValueError(f"sequence on {r.seq_axis!r}, tensor parallelism "
+                         f"on {r.tp_axis!r}: the sharded bodies need one "
+                         f"axis for both")
+    return mesh, r
+
+
+def _sharded_lookup(plain, table, tokens):
+    """`layers.lookup` (the token embedding) of tokens [B, S] whose S
+    divides the sequence axis, batch on the batch axes: each rank looks up
+    its own tokens. Where the vocab divides the tensor-parallel axis, each
+    rank holds a block of the table's rows and looks up every position of
+    its batch in it (zeros where a token lies outside), and the partial
+    sums are reduce-scattered onto the sequence (Megatron's vocab-parallel
+    embedding); else the table is whole and each rank takes its block of
+    the sequence. Either way the result comes with its sequence on the
+    axis, as the carry between layers does. Otherwise (decode) `plain`."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, r = _ambient()
+    ax = r.seq_axis
+    if not SH._fit(tokens.shape[1], mesh, ax):
+        return plain(table, tokens)
+    bq = SH._fit(tokens.shape[0], mesh, r.batch_axes)
+    vt = SH._fit(table.shape[0], mesh, r.tp_axis)
+    group = mesh.get_group(ax)
+    batch = _axes(bq)
+
+    def body(tl, ids):
+        if vt is None:
+            return tl[ids.chunk(SH.axis_size(mesh, ax), 1)[
+                mesh.get_local_rank(ax)].long()]
+        n = tl.shape[0]
+        i = ids.long() - mesh.get_local_rank(vt) * n
+        hit = (i >= 0) & (i < n)
+        rows = torch.where(hit[..., None], tl[i.clamp(0, n - 1)], 0.0)
+        return C.reduce_scatter_seq(rows, 1, group)
+
+    t_spec = (vt, None)
+    return local_map(
+        body, out_placements=list(SH.placements((bq, ax, None), mesh)),
+        in_placements=(SH.placements(t_spec, mesh),
+                       SH.placements((bq, None), mesh)),
+        in_grad_placements=(SH.placements(t_spec, mesh, batch + (
+            () if vt else (ax,))), SH.placements((bq, None), mesh)),
+        redistribute_inputs=True, device_mesh=mesh)(table, tokens)
+
+
+def _scatter_sequence(plain, x, batch_dim: int = 0):
+    """`constrain_batch` (the embedding's output) under sequence
+    parallelism: batch on the batch axes, then each rank's block of the
+    sequence of an activation [B, S, D] whose S divides the sequence axis
+    (`split_seq`: no communication; its gradient is all-gathered back), so
+    that the first layer takes what the carry between layers is. An
+    activation that comes so (`_sharded_lookup`'s) is left as it is."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, r = _ambient()
+    if batch_dim == 0 and x.ndim == 3 and _on_axis(x, mesh, r.seq_axis, 1):
+        return x
+    x = plain(x, batch_dim)
+    if batch_dim != 0 or x.ndim != 3 or not x.is_floating_point() or \
+            not SH._fit(x.shape[1], mesh, r.seq_axis):
+        return x
+    bq = SH._fit(x.shape[0], mesh, r.batch_axes)
+    group = mesh.get_group(r.seq_axis)
+    return local_map(
+        lambda t: C.split_seq(t, 1, group),
+        out_placements=list(SH.placements((bq, r.seq_axis, None), mesh)),
+        in_placements=(SH.placements((bq, None, None), mesh),),
+        redistribute_inputs=True, device_mesh=mesh)(x)
+
 
 def _tensor_parallel(fn, a, weights, w_dims, n: int, *, a_dim=None,
                      out_dim=None, out_ndim: int = 3):
     """`fn(a, *weights)` on DTensors as a Megatron tensor-parallel block:
     weight i split over the tensor-parallel axis at dim `w_dims[i]`, `a`
-    at `a_dim` (None: whole on every rank of the axis), the result at
-    `out_dim` (None: each rank's partial sum, reduced later). `n` is the
-    size the axis splits (heads, d_ff): where it does not divide, the axis
-    replicates the block. Batch goes on the batch axes, the weights are
-    gathered over the others, and each rank runs `fn` on its own block."""
+    at `a_dim` (None: not split there), the result at `out_dim` (None:
+    each rank's partial sum). `n` is the size the axis splits (heads,
+    d_ff). `a` may come with its sequence (dim 1) on the sequence axis:
+      * where n divides the axis, the sequence is all-gathered before the
+        product (`gather_seq`) and a partial result is reduce-scattered
+        onto it (`reduce_scatter_seq`; left a partial sum where the
+        sequence does not divide, as at decode);
+      * where it does not, the weights are whole on the axis and each rank
+        projects its own tokens (with the sequence whole, every rank
+        computes the whole block).
+    Batch goes on the batch axes, the weights are gathered over the others,
+    and each rank runs `fn` on its own block."""
     from torch.distributed.tensor.experimental import local_map
 
-    mesh, r = SH._ambient()
+    mesh, r = _ambient()
     tp = r.tp_axis if SH._fit(n, mesh, r.tp_axis) else None
     bq = SH._fit(a.shape[0], mesh, r.batch_axes)
+    sq = r.seq_axis if _on_axis(a, mesh, r.seq_axis, 1) else None
+    s_fit = SH._fit(a.shape[1], mesh, r.seq_axis)
+    # an `a` whole on the axis (an input, the encoder's embeddings) that
+    # meets weights whole on it: each rank takes its block of tokens
+    split = s_fit if not (tp or sq) and a_dim is None else None
+    out_sq = s_fit if tp and out_dim is None else None
+    own = sq or split               # each rank projects its own tokens
+    group = mesh.get_group(r.seq_axis) if sq or out_sq or split else None
 
-    def spec(ndim, dim, first=None):
+    def spec(ndim, at: dict, first=bq):
         out = [first] + [None] * (ndim - 1)
-        if dim is not None:
-            out[dim] = tp
+        for dim, ax in at.items():
+            if dim is not None and ax:
+                out[dim] = ax
         return tuple(out)
-    a_spec = spec(a.ndim, a_dim, bq)
-    w_specs = [spec(w.ndim, d) for w, d in zip(weights, w_dims)]
-    by_tp = (tp,) if tp else ()
-    batch = tuple(x for x in (bq if isinstance(bq, tuple) else (bq,)) if x)
-    # a contraction over a split dim leaves each rank a partial sum: the
-    # result when it is not split, the gradient of an `a` that is whole,
-    # each weight's gradient over the batch axes
-    fn = local_map(
-        fn,
-        out_placements=list(SH.placements(
-            spec(out_ndim, out_dim, bq), mesh,
-            by_tp if out_dim is None else ())),
+    a_spec = spec(a.ndim, {a_dim: tp, 1: sq})
+    w_specs = [spec(w.ndim, {d: tp}, None) for w, d in zip(weights, w_dims)]
+    if out_sq:
+        out_p = SH.placements(spec(out_ndim, {1: out_sq}), mesh)
+    elif out_dim is None and tp:
+        out_p = SH.placements(spec(out_ndim, {}), mesh, (tp,))
+    else:
+        out_p = SH.placements(spec(out_ndim, {out_dim: tp, 1: own if not tp
+                                              else None}), mesh)
+    batch = _axes(bq)
+    # the gradient of an `a` that is whole on the axis is a partial sum
+    # where the axis splits the weights; a weight's is one over the batch
+    # axes, and over the axis too where each rank saw its own tokens
+    a_grad = SH.placements(a_spec, mesh, (tp,) if tp and a_dim is None
+                           and not sq else ())
+    w_grad = batch + ((r.seq_axis,) if own and not tp else ())
+
+    def body(al, *wl):
+        if sq and tp:
+            al = C.gather_seq(al, 1, group)
+        if split:
+            al = C.split_seq(al, 1, group)
+        out = fn(al, *wl)
+        return C.reduce_scatter_seq(out, 1, group) if out_sq else out
+
+    fn_ = local_map(
+        body, out_placements=list(out_p),
         in_placements=(SH.placements(a_spec, mesh),
                        *(SH.placements(sp, mesh) for sp in w_specs)),
-        in_grad_placements=(
-            SH.placements(a_spec, mesh, by_tp if a_dim is None else ()),
-            *(SH.placements(sp, mesh, batch) for sp in w_specs)),
+        in_grad_placements=(a_grad, *(SH.placements(sp, mesh, w_grad)
+                                      for sp in w_specs)),
         redistribute_inputs=True, device_mesh=mesh)
-    return fn(a, *weights)
+    return fn_(a, *weights)
 
 
 def _sharded_attention(flash, q, k, v, **kw):
-    """`flash` (the plain `flash_attention`) on DTensors: each (batch,
-    head) attends on its own, so every rank runs it on its block, batch on
-    the batch axes and heads on the tensor-parallel axis. Where the KV
-    heads do not divide over it but the query heads do, the KV heads stay
-    whole and each rank takes the ones its query heads read; where the
-    query heads do not divide either, the heads are replicated (every rank
-    of the axis attends for all: the reference's sequence parallelism is
-    off, see the module's docstring)."""
+    """`flash` (the plain `flash_attention`) on DTensors, batch on the
+    batch axes:
+      * where the query heads divide the tensor-parallel axis, each rank
+        attends for its heads over the whole sequence; where the KV heads
+        do not divide it, each rank takes the ones its query heads read;
+      * where they do not, each rank attends for its own block of queries
+        by sequence (the sequence-parallel carry's), with the block's first
+        position as `q_offset`: the causal mask, the local window and the
+        skipped key blocks follow it.
+    Keys and values that come with their sequence on the axis are
+    all-gathered along it first (`gather_seq`), non-causal encoder and
+    cross attention alike."""
     from torch.distributed.tensor.experimental import local_map
 
-    mesh, r = SH._ambient()
+    mesh, r = _ambient()
     hq, hk = q.shape[2], k.shape[2]
     tp = r.tp_axis if SH._fit(hq, mesh, r.tp_axis) else None
     kv_tp = tp if SH._fit(hk, mesh, tp) else None
     bq = SH._fit(q.shape[0], mesh, r.batch_axes)
-    q_spec = (bq, None, tp, None)
-    kv_spec = (bq, None, kv_tp, None)
+    q_sq = r.seq_axis if _on_axis(q, mesh, r.seq_axis, 1) else None
+    kv_sq = r.seq_axis if (_on_axis(k, mesh, r.seq_axis, 1) and
+                           _on_axis(v, mesh, r.seq_axis, 1)) else None
+    q_spec = (bq, q_sq, tp, None)
+    kv_spec = (bq, kv_sq, kv_tp, None)
+    group = mesh.get_group(r.seq_axis) if kv_sq else None
+    # KV heads whole on the axis, each rank reading some: a partial sum
+    kv_grad = SH.placements(kv_spec, mesh, (tp,) if tp and not kv_tp
+                            and not kv_sq else ())
 
     def body(ql, kl, vl):
+        if kv_sq:
+            kl, vl = (C.gather_seq(t, 1, group) for t in (kl, vl))
         if tp is not None and kv_tp is None:
             # this rank's query heads and the KV head each one reads
             n = ql.shape[2]
@@ -271,13 +435,262 @@ def _sharded_attention(flash, q, k, v, **kw):
             heads = torch.arange(first, first + n, device=ql.device)
             pick = heads // (hq // hk)
             kl, vl = kl[:, :, pick], vl[:, :, pick]
-        return flash(ql, kl, vl, **kw)
+        off = _offset(mesh, q_sq, ql.shape[1]) if q_sq else 0
+        return flash(ql, kl, vl, q_offset=off, **kw)
 
     fn = local_map(body, out_placements=list(SH.placements(q_spec, mesh)),
                    in_placements=tuple(SH.placements(sp, mesh) for sp in
                                        (q_spec, kv_spec, kv_spec)),
+                   in_grad_placements=(SH.placements(q_spec, mesh), kv_grad,
+                                       kv_grad),
                    redistribute_inputs=True, device_mesh=mesh)
     return fn(q, k, v)
+
+
+def _model_spec(t, mesh, axis) -> tuple:
+    """DTensor t's spec with only `axis` kept: the block a rank takes once
+    the other axes (the fsdp ones) are gathered."""
+    from torch.distributed.tensor import Shard
+    p = t.placements[mesh.mesh_dim_names.index(axis)]
+    return tuple(axis if isinstance(p, Shard) and p.dim == d else None
+                 for d in range(t.ndim))
+
+
+def _sharded_ssm(plain, params, x, cfg, return_final_state: bool = False):
+    """`ssm_forward` (the SSD mixer) on DTensors, x [B, S, D] with its
+    sequence on the sequence axis: each rank gathers the sequence
+    (`gather_seq`) and runs the chunked scan, sequential across chunks, on
+    the whole of it for its block of SSD heads (where the heads divide the
+    axis; else for all of them). The weights come whole on the axis
+    (explicit gathers of the blocks it holds) and each rank takes its
+    heads' columns of the input projection (z, x and dt; B and C are
+    shared), conv channels, [H] weights and out_proj rows; the gated
+    norm's sum of squares is all-reduced over the axis, and the partial
+    out-projections are reduce-scattered back onto the sequence. With
+    `return_final_state`, the state [B, H, P, N] keeps the heads on the
+    axis and the conv tail is whole (computed from the last W-1 inputs,
+    without autograd: only prefill asks for it)."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, r = _ambient()
+    ax = r.tp_axis
+    di, h, p, n, _ = M._dims(cfg)
+    split = SH._fit(h, mesh, ax) is not None
+    sq = _on_axis(x, mesh, ax, 1)
+    out_sq = SH._fit(x.shape[1], mesh, ax) is not None
+    if not (split or out_sq):
+        # the heads and the sequence whole on every rank of the axis
+        return plain(params, x, cfg, return_final_state)
+    m = SH.axis_size(mesh, ax)
+    bq = SH._fit(x.shape[0], mesh, r.batch_axes)
+    group = mesh.get_group(ax)
+    names = ("in_proj", "conv_w", "conv_b", "a_log", "d_skip", "dt_bias",
+             "norm", "out_proj")
+    ws = [getattr(params, k) for k in names]
+    w_specs = [_model_spec(w, mesh, ax) for w in ws]
+    batch = _axes(bq)
+    # a weight whole on the axis, each rank using its heads' part or its
+    # own tokens: a partial sum over it too
+    w_grads = [SH.placements(sp, mesh, batch + (() if ax in sp else (ax,)))
+               for sp in w_specs]
+    x_spec = (bq, ax if sq else None, None)
+
+    def whole(t, spec, dim):
+        return C.gather_seq(t, dim, group) if spec[dim] else t
+
+    def body(xl, in_proj, conv_w, conv_b, a_log, d_skip, dt_bias, norm,
+             out_proj):
+        if sq:
+            xl = C.gather_seq(xl, 1, group)
+        b, s, _ = xl.shape
+        dev = xl.device
+        k = mesh.get_local_rank(ax) if split else 0
+        hl = h // m if split else h
+        heads = torch.arange(k * hl, (k + 1) * hl, device=dev)
+        ch = (heads[:, None] * p + torch.arange(p, device=dev)).reshape(-1)
+        cl = ch.numel()
+        bc = torch.arange(2 * n, device=dev) + di
+        in_proj = whole(in_proj, w_specs[0], 1)
+        cols = torch.cat([ch, di + ch, di + bc, 2 * di + 2 * n + heads])
+        z, xo, bcs, dt_raw = (xl @ in_proj[:, cols]).split(
+            [cl, cl, 2 * n, hl], dim=-1)
+        conv = torch.cat([ch, bc])
+        xc = M._causal_conv(torch.cat([xo, bcs], dim=-1),
+                            whole(conv_w, w_specs[1], 1)[:, conv],
+                            whole(conv_b, w_specs[2], 0)[conv])
+        y, state = M.ssd_scan(xc, dt_raw, a_log[heads], dt_bias[heads],
+                              d_skip[heads], n, cfg.ssd_chunk)
+        g = y.reshape(b, s, cl) * F.silu(z.float())
+        sumsq = (g * g).sum(-1, keepdim=True)
+        if split:
+            sumsq = C.all_reduce_sum(sumsq, group)
+        g = g * torch.rsqrt(sumsq / di + cfg.norm_eps) * \
+            (1.0 + whole(norm, w_specs[6], 0)[ch].float())
+        own = split and w_specs[7][0]       # out_proj's rows are the heads'
+        w_out = out_proj if own else whole(out_proj, w_specs[7], 0)[ch]
+        out = g.to(xl.dtype) @ w_out
+        if out_sq and split:
+            out = C.reduce_scatter_seq(out, 1, group)
+        elif out_sq:
+            sl = s // m
+            out = out[:, mesh.get_local_rank(ax) * sl:][:, :sl]
+        if not return_final_state:
+            return out
+        wc = cfg.conv_width - 1
+        with torch.no_grad():
+            tail = M._conv_tail(xl[:, s - wc:] @ in_proj[:, di:2 * di + 2 * n],
+                                cfg)
+        return out, state, tail
+
+    if out_sq:
+        out_p = SH.placements((bq, ax, None), mesh)
+    else:
+        out_p = SH.placements((bq, None, None), mesh, (ax,))
+    outs = [out_p]
+    if return_final_state:
+        outs += [SH.placements((bq, ax if split else None, None, None),
+                               mesh), SH.placements((bq, None, None), mesh)]
+    x_grad = SH.placements(x_spec, mesh, () if sq else (ax,))
+    fn = local_map(body, out_placements=tuple(outs) if return_final_state
+                   else list(outs[0]),
+                   in_placements=(SH.placements(x_spec, mesh),
+                                  *(SH.placements(sp, mesh)
+                                    for sp in w_specs)),
+                   in_grad_placements=(x_grad, *w_grads),
+                   redistribute_inputs=True, device_mesh=mesh)
+    res = fn(x, *ws)
+    if not return_final_state:
+        return res
+    out, state, tail = res
+    return out, (state, tail)
+
+
+def _vocab_nll(wl, x, labels, v0: int, cfg, group):
+    """The summed CE of x [B, c, D] against labels [B, c] with this rank's
+    block of the vocab, wl [D, V/m] from row v0: the log-sum-exp and the
+    gold logit summed over the ranks' blocks (Megatron's vocab-parallel
+    cross-entropy)."""
+    logits = L.unembed_logits(x, wl, cfg)                      # [B, c, V/m]
+    top = C.all_reduce_max(logits.amax(-1), group)
+    lse = top + torch.log(C.all_reduce_sum(
+        torch.exp(logits - top[..., None]).sum(-1), group))
+    n = logits.shape[-1]
+    i = labels.long() - v0
+    hit = (i >= 0) & (i < n)
+    gold = torch.where(hit, torch.gather(logits, -1, i.clamp(0, n - 1)[
+        ..., None])[..., 0], 0.0)
+    return torch.sum(lse - C.all_reduce_sum(gold, group))
+
+
+def _sharded_nll(plain, w, x, labels, cfg, c: int):
+    """`model.nll_sum` (the chunked CE) on x [B, S, D] with its sequence on
+    the sequence axis, as `constrain_ce` places the chunks' logits:
+      * where the vocab divides the tensor-parallel axis, each chunk's
+        positions whole and the vocab split: the sequence is all-gathered
+        and each rank computes the chunks' logits for its block of the
+        vocab (`_vocab_nll`), every rank then holding the same sum;
+      * where it does not, the chunks' sequence on the axis: each rank sums
+        the CE of its own positions, in chunks of c / axis size (the
+        [B, c / axis, V] logits a rank holds in the reference), with the
+        unembedding whole.
+    The sums are all-reduced (each rank hands in its own, or 1/m of the
+    common one, as a partial sum)."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    from torch.utils.checkpoint import checkpoint
+
+    mesh, r = _ambient()
+    ax = r.seq_axis
+    if not _on_axis(x, mesh, ax, 1):
+        return plain(w, x, labels, cfg, c)
+    bq = SH._fit(x.shape[0], mesh, r.batch_axes)
+    group = mesh.get_group(ax)
+    m = SH.axis_size(mesh, ax)
+    vt = SH._fit(w.shape[1], mesh, r.tp_axis)
+    batch = _axes(bq)
+    x_spec = (bq, ax, None)
+    w_spec = (None, vt)
+    l_spec = (bq, None if vt else ax)
+
+    def body(wl, xl, ll):
+        if vt is None:
+            return plain(wl, xl, ll, cfg, c // m if c % m == 0 else
+                         xl.shape[1])
+        xs = C.gather_seq(xl, 1, group)
+        v0 = mesh.get_local_rank(vt) * wl.shape[1]
+        total = torch.zeros((), dtype=torch.float32, device=xs.device)
+        for c0 in range(0, xs.shape[1], c):
+            total = total + checkpoint(_vocab_nll, wl, xs[:, c0:c0 + c],
+                                       ll[:, c0:c0 + c], v0, cfg, group,
+                                       use_reentrant=False)
+        return total / m
+
+    fn = local_map(
+        body, out_placements=list(SH.placements((), mesh, batch + (ax,))),
+        in_placements=(SH.placements(w_spec, mesh),
+                       SH.placements(x_spec, mesh),
+                       SH.placements(l_spec, mesh)),
+        in_grad_placements=(SH.placements(w_spec, mesh, batch + (
+            () if vt else (ax,))), SH.placements(x_spec, mesh),
+            SH.placements(l_spec, mesh)),
+        redistribute_inputs=True, device_mesh=mesh)
+    return fn(w, x, labels).redistribute(mesh, [Replicate()] * mesh.ndim)
+
+
+def _sharded_last(plain, hidden):
+    """`decode.last_position` of hidden [B, S, D] with its sequence on the
+    sequence axis: the last rank's last row, gathered to every rank."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, r = _ambient()
+    ax = r.seq_axis
+    if not _on_axis(hidden, mesh, ax, 1):
+        return plain(hidden)
+    bq = SH._fit(hidden.shape[0], mesh, r.batch_axes)
+    group = mesh.get_group(ax)
+    return local_map(
+        lambda t: C.gather_seq(t[:, -1:], 1, group)[:, -1:],
+        out_placements=list(SH.placements((bq, None, None), mesh)),
+        in_placements=(SH.placements((bq, ax, None), mesh),),
+        redistribute_inputs=True, device_mesh=mesh)(hidden)
+
+
+def _sharded_ring_pack(plain, k, wc: int):
+    """`decode._ring_pack` of prefill's keys or values [L, B, S, K, h] with
+    the sequence on the sequence axis: each rank puts its positions among
+    the last `wc` into their ring slots (position % wc) of a zero ring,
+    and the rings are summed over the axis (an all-reduce: each slot comes
+    from one rank)."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, r = _ambient()
+    ax = r.seq_axis
+    dim = k.ndim - 3
+    if not _on_axis(k, mesh, ax, dim):
+        return plain(k, wc)
+    spec = list(_spec_of(k))
+    s = k.shape[dim]
+
+    def body(kl):
+        nl = kl.shape[dim]
+        off = mesh.get_local_rank(ax) * nl
+        lo, hi = max(s - wc, off), off + nl           # this rank's kept
+        ring = kl.new_zeros(kl.shape[:dim] + (wc,) + kl.shape[dim + 1:])
+        if lo < hi:
+            slots = torch.arange(lo, hi, device=kl.device) % wc
+            ring.index_copy_(dim, slots, kl.narrow(dim, lo - off, hi - lo))
+        return ring
+
+    ring_spec = list(spec)
+    ring_spec[dim] = None
+    ring = local_map(body, out_placements=list(SH.placements(
+        ring_spec, mesh, (ax,))), in_placements=(SH.placements(spec, mesh),),
+        redistribute_inputs=True, device_mesh=mesh)(k)
+    return ring.redistribute(mesh, [Replicate() if i == mesh.mesh_dim_names
+                                    .index(ax) else p for i, p in
+                                    enumerate(ring.placements)])
 
 
 def _spec_of(t) -> tuple:
@@ -470,7 +883,7 @@ def _sharded_moe_ffn(params, x, cfg):
     `model`."""
     from torch.distributed.tensor.experimental import local_map
 
-    mesh, r = SH._ambient()
+    mesh, r = _ambient()
     e = cfg.n_experts
     tp = r.tp_axis if SH._fit(e, mesh, r.tp_axis) else None
 
@@ -510,24 +923,35 @@ def _masked_gold(logits, labels):
 
 @contextlib.contextmanager
 def sharded_forwards():
-    """Within the block, the layers' projections (`project`, `_out`), the
-    MLP (`_mlp`), `flash_attention` and the CE label pick (`model._gold`)
-    take their DTensor versions when handed DTensors; restored on exit."""
+    """Within the block, the token embedding (`lookup`), the layers'
+    projections (`project`, `_out`), the MLP (`_mlp`), `flash_attention`,
+    the SSD mixer (`ssm_forward`), the embedding's constraint
+    (`constrain_batch`), the chunked CE
+    (`model.nll_sum`) and its label pick (`model._gold`), prefill's last
+    position and ring packing, and the decode step's bodies take their
+    DTensor versions when handed DTensors; restored on exit."""
     from torch.distributed.tensor import DTensor
-    plain = {(L, "project"): L.project, (L, "_out"): L._out,
+    plain = {(L, "lookup"): L.lookup,
+             (L, "project"): L.project, (L, "_out"): L._out,
              (L, "_mlp"): L._mlp, (L, "flash_attention"): L.flash_attention,
-             (MODEL, "_gold"): MODEL._gold,
+             (M, "ssm_forward"): M.ssm_forward,
+             (SH, "constrain_batch"): SH.constrain_batch,
+             (MODEL, "nll_sum"): MODEL.nll_sum, (MODEL, "_gold"): MODEL._gold,
+             (D, "last_position"): D.last_position,
+             (D, "_ring_pack"): D._ring_pack,
              (L, "decode_attention"): L.decode_attention,
              (D, "write_kv"): D.write_kv, (M, "ssm_recur"): M.ssm_recur,
              (MOE, "moe_ffn"): MOE.moe_ffn}
 
     def on_dtensor(key, sharded):
         def fn(*args, **kw):
-            if any(isinstance(t, DTensor) for t in args):
+            if any(isinstance(t, DTensor) for t in (*args, *kw.values())):
                 return sharded(*args, **kw)
             return plain[key](*args, **kw)
         return fn
     swaps = {
+        (L, "lookup"): lambda t, ids: _sharded_lookup(plain[L, "lookup"], t,
+                                                      ids),
         (L, "project"): lambda x, w: _tensor_parallel(
             plain[L, "project"], x, (w,), (1,), w.shape[1], out_dim=2,
             out_ndim=4),
@@ -537,7 +961,17 @@ def sharded_forwards():
             plain[L, "_mlp"], x, w, (1, 1, 0), w[0].shape[1]),
         (L, "flash_attention"): lambda q, k, v, **kw: _sharded_attention(
             plain[L, "flash_attention"], q, k, v, **kw),
+        (M, "ssm_forward"): lambda *a, **kw: _sharded_ssm(
+            plain[M, "ssm_forward"], *a, **kw),
+        (SH, "constrain_batch"): lambda *a: _scatter_sequence(
+            plain[SH, "constrain_batch"], *a),
+        (MODEL, "nll_sum"): lambda *a: _sharded_nll(
+            plain[MODEL, "nll_sum"], *a),
         (MODEL, "_gold"): _masked_gold,
+        (D, "last_position"): lambda h: _sharded_last(
+            plain[D, "last_position"], h),
+        (D, "_ring_pack"): lambda k, wc: _sharded_ring_pack(
+            plain[D, "_ring_pack"], k, wc),
         (L, "decode_attention"): lambda q, k, v, n, **kw:
             _sharded_decode_attention(plain[L, "decode_attention"], q, k, v,
                                       n, **kw),
@@ -672,7 +1106,6 @@ def _aten_op(exc: BaseException) -> str | None:
 def _step(cfg, cell, shape: str, mesh, rules, ocfg) -> dict:
     """One run of the cell's step at `cfg`'s depth: its counts."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    from torch.distributed.tensor.experimental import implicit_replication
 
     with FakeTensorMode():
         model = shard_model(MODEL.Model(cfg, device="cpu"), cfg, mesh,
@@ -693,8 +1126,7 @@ def _step(cfg, cell, shape: str, mesh, rules, ocfg) -> dict:
             args += [shard_cache(cache, mesh, rules), inputs["tokens"],
                      inputs["positions"]]
         tally = Tally()
-        with SH.activate(mesh, rules), implicit_replication(), \
-                sharded_forwards(), tally:
+        with on_mesh(mesh, rules), tally:
             fn(*args)
     return {"flops": tally.flops, "coll": dict(tally.coll),
             "step_bytes": tally.peak}
@@ -751,7 +1183,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool, cfg=None) -> dict:
     cell = SHAPES[shape]
     full = MODEL.param_shapes(cfg)
     with MESH.production_mesh(multi_pod=multi_pod) as mesh:
-        rules, ocfg = _setup(SH.AxisRules(seq_axis=None), multi_pod, arch)
+        rules, ocfg = _setup(SH.AxisRules(), multi_pod, arch)
         rec.update(held_bytes(cfg, full, shape, mesh, rules, ocfg))
         probes = [_step(probe_cfg(cfg, b), cell, shape, mesh, rules, ocfg)
                   for b in (1, 2)]

@@ -3,8 +3,8 @@ module-level constants: importing this module touches no process group.
 
 The production meshes (16 x 16 and 2 x 16 x 16 chips) have no hardware
 behind them here: `fake_world(n)` opens a process group of `n` ranks on
-PyTorch's `fake` backend (this process is rank 0, and a collective on it
-moves nothing), in which `init_device_mesh` builds them, and always
+PyTorch's `fake` backend (this process is the last rank, and a collective
+on it moves nothing), in which `init_device_mesh` builds them, and always
 destroys it on the way out. DTensors on such a mesh, made under
 `FakeTensorMode`, carry shapes, placements and the collectives DTensor
 would issue, with no data (`launch/dryrun.py`). A fake group left behind
@@ -34,14 +34,17 @@ def mesh_name(multi_pod: bool = False) -> str:
 
 @contextlib.contextmanager
 def fake_world(n: int):
-    """A process group of `n` ranks on the `fake` backend, this process
-    rank 0, destroyed on exit (also when the body raises)."""
+    """A process group of `n` ranks on the `fake` backend, destroyed on exit
+    (also when the body raises). This process is the last rank: under
+    sequence parallelism its block of queries sees every key, so the
+    dry-run counts the rank with the most causal attention work."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     if dist.is_initialized():
         raise RuntimeError("fake_world: a process group is already "
                            "initialized in this process")
-    dist.init_process_group("fake", store=FakeStore(), world_size=n, rank=0)
+    dist.init_process_group("fake", store=FakeStore(), world_size=n,
+                            rank=n - 1)
     try:
         yield n
     finally:

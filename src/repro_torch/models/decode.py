@@ -218,6 +218,11 @@ def _fit(k: torch.Tensor, s_alloc: int) -> torch.Tensor:
     return k[..., :s_alloc, :, :].contiguous()
 
 
+def last_position(hidden: torch.Tensor) -> torch.Tensor:
+    """hidden [B, S, D] -> its last position [B, 1, D]."""
+    return hidden[:, -1:]
+
+
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: MODEL.Model, inputs: dict,
             ctx_len: int):
@@ -231,7 +236,7 @@ def prefill(cfg: ModelConfig, params: MODEL.Model, inputs: dict,
     """
     hidden, caches = MODEL.forward_hidden(cfg, params, inputs,
                                           collect_cache=True)
-    logits = params.embed.logits(hidden[:, -1:], cfg)
+    logits = params.embed.logits(last_position(hidden), cfg)
     wc = _window_cache_len(cfg, ctx_len)
     if cfg.family == "ssm":
         state, conv = caches

@@ -65,15 +65,16 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     logit_cap: float = 0.0, q_chunk: int = 512,
-                    k_chunk: int = 512) -> torch.Tensor:
+                    k_chunk: int = 512, q_offset: int = 0) -> torch.Tensor:
     """Chunked attention with running softmax stats (no S x S buffer).
 
     q: [B, Sq, H, h]; k, v: [B, Sk, K, h] with H % K == 0 (GQA).
     `window` > 0 restricts to keys within `window` positions (local layers).
-    Queries and keys start at position 0. A key block that no query of the
-    chunk may see is skipped: its probabilities are 0 and it would leave
-    (max, sum, acc) as they are. `flags.FLASH_CHUNK`, when set, is both
-    block lengths.
+    Keys start at position 0 and queries at `q_offset` (a block of queries
+    cut from a longer sequence: a rank's under sequence parallelism). A key
+    block that no query of the chunk may see is skipped: its probabilities
+    are 0 and it would leave (max, sum, acc) as they are.
+    `flags.FLASH_CHUNK`, when set, is both block lengths.
     """
     if flags.FLASH_CHUNK:
         q_chunk = k_chunk = flags.FLASH_CHUNK
@@ -87,15 +88,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     outs = []
     for q0 in range(0, sq, q_chunk):
         q1 = min(q0 + q_chunk, sq)
-        q_pos = torch.arange(q0, q1, device=dev)
+        p0, p1 = q0 + q_offset, q1 + q_offset        # the chunk's positions
+        q_pos = torch.arange(p0, p1, device=dev)
         m = torch.full((b, hk, g, q1 - q0), NEG_INF, device=dev)
         l = torch.zeros((b, hk, g, q1 - q0), device=dev)
         acc = torch.zeros((b, hk, g, q1 - q0, hd), device=dev)
         for k0 in range(0, sk, k_chunk):
             k1 = min(k0 + k_chunk, sk)
-            if causal and k0 > q1 - 1:
+            if causal and k0 > p1 - 1:
                 break
-            if window and k1 - 1 <= q0 - window:
+            if window and k1 - 1 <= p0 - window:
                 continue
             s = torch.einsum("bqkgh,bskh->bkgqs", qf[:, q0:q1],
                              kf[:, k0:k1]) * scale
@@ -284,10 +286,25 @@ class Embedding(nn.Module):
                                   generator)
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.table[tokens.long()]
+        return lookup(self.table, tokens)
+
+    def out_weight(self, cfg: ModelConfig) -> torch.Tensor:
+        """The unembedding matrix [D, V]: the table's transpose when tied."""
+        return self.table.t() if cfg.tie_embeddings else self.unembed
 
     def logits(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         """The unembedding: [B, S, D] -> fp32 logits [B, S, V],
         soft-capped."""
-        w = self.table.t() if cfg.tie_embeddings else self.unembed
-        return softcap((x @ w).float(), cfg.final_logit_softcap)
+        return unembed_logits(x, self.out_weight(cfg), cfg)
+
+
+def lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of table [V, D] at tokens [B, S] -> [B, S, D]."""
+    return table[tokens.long()]
+
+
+def unembed_logits(x: torch.Tensor, w: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """x [..., D] times the unembedding w [D, V], as fp32 logits,
+    soft-capped."""
+    return softcap((x @ w).float(), cfg.final_logit_softcap)

@@ -103,11 +103,31 @@ def ssm_forward(params: SSM, x: torch.Tensor, cfg: ModelConfig,
     """
     b, s, d = x.shape
     di, h, p, n, conv_ch = _dims(cfg)
-    q = cfg.ssd_chunk
-    spad = (-s) % q
     zxbcdt = x @ params.in_proj
     z, xc_raw, dt_raw = _split(cfg, zxbcdt)
     xc = _causal_conv(xc_raw, params.conv_w, params.conv_b)
+    y, state = ssd_scan(xc, dt_raw, params.a_log, params.dt_bias,
+                        params.d_skip, n, cfg.ssd_chunk)
+    y = _gated_norm(y.reshape(b, s, di), z, params.norm, cfg.norm_eps)
+    out = y.to(x.dtype) @ params.out_proj
+    if return_final_state:
+        return out, (state, _conv_tail(xc_raw, cfg))
+    return out
+
+
+def ssd_scan(xc, dt_raw, a_log, dt_bias, d_skip, n: int, q: int):
+    """The chunked SSD of H heads: xc [B, S, H*P + 2N] (x | B | C, after
+    the conv), dt_raw [B, S, H] and the heads' a_log, dt_bias, d_skip [H],
+    in chunks of q positions -> (y [B, S, H, P] fp32 with the D skip, the
+    final state [B, H, P, N] fp32). Heads are independent: a block of them
+    with its slices of x, dt and the [H] weights gives their y and state.
+    """
+    b, s, _ = xc.shape
+    h = dt_raw.shape[-1]
+    di = xc.shape[-1] - 2 * n
+    p = di // h
+    dev = xc.device
+    spad = (-s) % q
     if spad:
         xc = F.pad(xc, (0, 0, 0, spad))
         dt_raw = F.pad(dt_raw, (0, 0, 0, spad))
@@ -116,12 +136,12 @@ def ssm_forward(params: SSM, x: torch.Tensor, cfg: ModelConfig,
     xs = xc[..., :di].reshape(b, nc, q, h, p).float()
     bmat = xc[..., di:di + n].reshape(b, nc, q, n).float()
     cmat = xc[..., di + n:].reshape(b, nc, q, n).float()
-    dt = F.softplus(dt_raw.float() + params.dt_bias).reshape(b, nc, q, h)
+    dt = F.softplus(dt_raw.float() + dt_bias).reshape(b, nc, q, h)
     # Padded tail: dt=0 -> exp decay 1, no state contribution.
     if spad:
-        tmask = (torch.arange(sp, device=x.device) < s).reshape(1, nc, q, 1)
+        tmask = (torch.arange(sp, device=dev) < s).reshape(1, nc, q, 1)
         dt = dt * tmask
-    a = -torch.exp(params.a_log)                          # [h]
+    a = -torch.exp(a_log)                                 # [h]
     cum = torch.cumsum(dt * a, dim=2)                     # within-chunk cumsum
 
     # ---- intra-chunk (dual/quadratic form) ----
@@ -129,7 +149,7 @@ def ssm_forward(params: SSM, x: torch.Tensor, cfg: ModelConfig,
     # place when a backward may need the factors.
     grad = torch.is_grad_enabled()
     scores = cmat @ bmat.transpose(-1, -2)                # [b,c,q,k]
-    causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    causal = torch.ones((q, q), dtype=torch.bool, device=dev).tril()
     m = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # decay [b,c,q,k,h]
     if grad:
         m = m.clamp(-60.0, 0.0).exp() * scores[..., None] * \
@@ -148,7 +168,7 @@ def ssm_forward(params: SSM, x: torch.Tensor, cfg: ModelConfig,
     contrib = torch.einsum("bcqhp,bcqn->bchpn", wx, bmat)
     del wx
     total_decay = torch.exp(cum[:, :, -1, :].clamp(-60.0, 0.0))   # [b,c,h]
-    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=dev)
     prev = []                                             # state BEFORE chunk
     for ci in range(nc):
         prev.append(state)
@@ -163,12 +183,8 @@ def ssm_forward(params: SSM, x: torch.Tensor, cfg: ModelConfig,
         y_inter.mul_(in_decay[..., None])
 
     y = (y_intra + y_inter).reshape(b, sp, h, p)[:, :s]
-    y = y + xs.reshape(b, sp, h, p)[:, :s] * params.d_skip[None, None, :, None]
-    y = _gated_norm(y.reshape(b, s, di), z, params.norm, cfg.norm_eps)
-    out = y.to(x.dtype) @ params.out_proj
-    if return_final_state:
-        return out, (state, _conv_tail(xc_raw, cfg))
-    return out
+    y = y + xs.reshape(b, sp, h, p)[:, :s] * d_skip[None, None, :, None]
+    return y, state
 
 
 def _conv_tail(xc_raw, cfg):

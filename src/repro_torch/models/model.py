@@ -340,11 +340,12 @@ def forward(cfg: ModelConfig, params: Model, inputs: dict, *,
     return params.embed.logits(x, cfg), caches
 
 
-def _chunk_nll(embed: L.Embedding, x: torch.Tensor, labels: torch.Tensor,
+def _chunk_nll(w: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
     """Summed next-token cross-entropy of one chunk x [B, c, D] against
-    labels [B, c], through its fp32 logits [B, c, V]."""
-    logits = SH.constrain_ce(embed.logits(x, cfg))
+    labels [B, c], through its fp32 logits [B, c, V] (w: the unembedding
+    [D, V])."""
+    logits = SH.constrain_ce(L.unembed_logits(x, w, cfg))
     lse = torch.logsumexp(logits, dim=-1)
     return torch.sum(lse - _gold(logits, labels.long()))
 
@@ -354,26 +355,34 @@ def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.gather(logits, -1, labels[..., None])[..., 0]
 
 
+def nll_sum(w: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
+            cfg: ModelConfig, c: int) -> torch.Tensor:
+    """The summed cross-entropy of x [B, S, D] against labels [B, S], in
+    chunks of `c` positions (c divides S), each checkpointed: the peak is
+    one chunk's [B, c, V] logits, in backward too."""
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, x.shape[1], c):
+        total = total + checkpoint(_chunk_nll, w, x[:, c0:c0 + c],
+                                   labels[:, c0:c0 + c], cfg,
+                                   use_reentrant=False)
+    return total
+
+
 def loss_fn(cfg: ModelConfig, params: Model, batch: dict,
             loss_chunk: int = 512) -> torch.Tensor:
     """Mean next-token cross-entropy (labels are pre-shifted), fp32.
 
     Every layer runs under activation checkpointing, as the reference's
     forward does. The unembedding and softmax-CE run in `loss_chunk`-long
-    sequence chunks (`flags.LOSS_CHUNK` when set), each checkpointed too,
-    so the [B, S, V] logits are never held: the peak is one chunk's
-    [B, c, V], in backward too. A chunk length that does not divide S
-    becomes S (one chunk), as in the reference.
+    sequence chunks (`flags.LOSS_CHUNK` when set; `nll_sum`), each
+    checkpointed too, so the [B, S, V] logits are never held. A chunk
+    length that does not divide S becomes S (one chunk), as in the
+    reference.
     """
     x, _ = forward_hidden(cfg, params, batch)
-    labels = batch["labels"]
     b, s, _ = x.shape
     c = min(flags.LOSS_CHUNK or loss_chunk, s)
     if s % c:
         c = s
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for c0 in range(0, s, c):
-        total = total + checkpoint(_chunk_nll, params.embed, x[:, c0:c0 + c],
-                                   labels[:, c0:c0 + c], cfg,
-                                   use_reentrant=False)
-    return total / (b * s)
+    return nll_sum(params.embed.out_weight(cfg), x, batch["labels"], cfg,
+                   c) / (b * s)

@@ -30,6 +30,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel import collectives as C
 from repro_torch.parallel import sharding as SH
 
 
@@ -152,17 +153,6 @@ def moe_ffn(params: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 # ---------------------------------------------------- explicit-a2a dispatch --
 
-def _staged(t: torch.Tensor, group) -> torch.Tensor:
-    """`t` where an all-gather on `group` can take it: gloo's functional
-    all-gather crashes its rank on a CUDA tensor (torch 2.11 on the H100;
-    its all-to-all runs), so ranks that share a card through gloo gather
-    through the host; the copies are differentiable."""
-    import torch.distributed as dist
-    if t.is_cuda and dist.get_backend(group) == "gloo":
-        return t.cpu()
-    return t
-
-
 def _gather(ws, dims, groups) -> list:
     """Each of `ws` all-gathered along its dim in `dims` (the one sharded
     over the fsdp axes, of one size in all) over `groups` (the fsdp axes'
@@ -178,7 +168,7 @@ def _gather(ws, dims, groups) -> list:
     buf = torch.cat([f.reshape(f.shape[0], -1) for f in flat], dim=1)
     for group in reversed(groups):
         buf = fc.wait_tensor(fc.all_gather_tensor_autograd(
-            _staged(buf, group), 0, group))
+            C.staged(buf, group), 0, group))
     parts = buf.to(dev).split([math.prod(sh[1:]) for sh in shapes], dim=1)
     return [p.reshape(-1, *sh[1:]).movedim(0, d)
             for p, sh, d in zip(parts, shapes, dims)]

@@ -10,10 +10,16 @@ Mesh: a `torch.distributed.device_mesh.DeviceMesh` with named dims
   `("pod", "data")`).
 * **TP** over `model`: MLP d_ff, MoE experts (EP), vocab, and attention
   heads *when they divide*; the awkward head counts (yi-34b 56, internvl2
-  14, hymba 25, llama4 40) replicate over `model` instead. The reference
-  shards their attention by sequence parallelism (`seq_axis`); the port's
-  dry-run turns it off (`launch/dryrun.py`), so there they replicate
-  attention over `model`.
+  14, hymba 25, llama4 40) keep their attention weights whole on `model`.
+* **SP** (Megatron-style sequence parallelism, on by default: `seq_axis`
+  "model"): the activations between layers keep their sequence on
+  `model`. A column-parallel product all-gathers the sequence first and a
+  row-parallel one reduce-scatters its partial sums back onto it; where
+  the heads do not divide, each rank projects its own tokens and attends
+  for its own block of queries over the gathered keys and values; the CE
+  chunks fall back to the sequence on `model` where the vocab does not
+  divide (`constrain_ce`). The bodies are `launch/dryrun.py`'s
+  `sharded_forwards`, the collectives `parallel/collectives.py`'s.
 * **Batch** over (`pod`, `data`). `long_500k` (batch 1) shards the KV
   cache over `data` along the sequence instead.
 

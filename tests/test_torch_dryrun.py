@@ -76,6 +76,7 @@ def test_smoke_records_by_family(arch, over, one_block):
     assert not dist.is_initialized()
     assert rec["status"] == "ok" and rec["mesh"] == "16x16"
     assert rec["n_devices"] == 256 and rec["mesh_device"] == "cpu"
+    assert rec["seq_axis"] == "model"
     model = MODEL.param_shapes(cfg)
     assert rec["params_total"] == DR.count_params(model)
     assert rec["model_flops"] == DR.model_flops(cfg, model, "train_4k")
@@ -95,16 +96,19 @@ def test_smoke_records_by_family(arch, over, one_block):
         assert coll["all-to-all"] > 0
 
 
-def test_ssm_cell_records_the_op_it_fails_on(one_block):
-    """mamba2's SSD runs a batched product DTensor has no rule for: the
-    cell is recorded as an error naming that op (ROADMAP.md, waiting for
-    the benchmark)."""
-    with pytest.raises(RuntimeError) as err:
-        DR.run_cell("mamba2-2-7b", "train_4k", False,
-                    cfg=smoke_config("mamba2-2-7b"))
-    rec = DR.error_record("mamba2-2-7b", "train_4k", False, err.value)
-    assert rec["status"] == "error" and rec["op"].startswith("aten.")
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("arch", ["mamba2-2-7b", "hymba-1-5b"])
+def test_ssm_train_cells_run(arch, multi_pod, one_block):
+    """The SSD's train cells (on `aten.bmm` over strided shards before the
+    SSD had its sequence-parallel body) are `ok` on both fake meshes."""
+    rec = DR.run_cell(arch, "train_4k", multi_pod, cfg=smoke_config(arch))
     assert not dist.is_initialized()
+    assert rec["status"] == "ok" and rec["seq_axis"] == "model"
+    assert rec["n_devices"] == (512 if multi_pod else 256)
+    assert rec["flops_per_rank_est"] * rec["n_devices"] >= \
+        rec["model_flops"]
+    coll = rec["collective_bytes_per_rank_est"]
+    assert coll["all-gather"] > 0 and coll["reduce-scatter"] > 0
 
 
 def test_full_width_cell():
@@ -176,8 +180,11 @@ def test_sharded_forwards_swap_only_inside(raises):
     from repro_torch.models import decode as D
     from repro_torch.models import mamba2 as M
     from repro_torch.models import moe as MOE
-    names = ((L, "project"), (L, "_out"), (L, "_mlp"),
-             (L, "flash_attention"), (MODEL, "_gold"),
+    from repro_torch.parallel import sharding as SH
+    names = ((L, "lookup"), (L, "project"), (L, "_out"), (L, "_mlp"),
+             (L, "flash_attention"), (M, "ssm_forward"),
+             (SH, "constrain_batch"), (MODEL, "nll_sum"), (MODEL, "_gold"),
+             (D, "last_position"), (D, "_ring_pack"),
              (L, "decode_attention"), (D, "write_kv"), (M, "ssm_recur"),
              (MOE, "moe_ffn"))
     plain = {key: getattr(*key) for key in names}

@@ -99,7 +99,7 @@ def test_gemma2_long_500k_at_full_width():
     cfg = get_config("gemma2-9b")
     cache = D.init_cache(cfg, 1, 524288, device="meta")
     with MESH.production_mesh(multi_pod=False) as mesh:
-        specs = SH.cache_specs(cache, mesh, SH.AxisRules(seq_axis=None))
+        specs = SH.cache_specs(cache, mesh, SH.AxisRules())
     assert specs["k_global"] == (None, None, "data", None, "model")
     assert specs["k_local"] == (None, None, "data", None, "model")
     rec = DR.run_cell("gemma2-9b", "long_500k", False)
@@ -190,7 +190,7 @@ def test_held_bytes_equal_the_references_arguments(jax_argument_bytes, arch,
         if cfg.family == "encdec" else set())
     assert ins == ({"positions"} if cfg.family == "ssm" else set())
     with MESH.production_mesh(multi_pod=False) as mesh:
-        rules, ocfg = DR._setup(SH.AxisRules(seq_axis=None), False, arch)
+        rules, ocfg = DR._setup(SH.AxisRules(), False, arch)
         full = MODEL.param_shapes(cfg)
         held = DR.held_bytes(cfg, full, shape, mesh, rules, ocfg)
         named = dict(full.named_parameters())
@@ -283,7 +283,7 @@ def decode_rank(rank, group, device, arrays):
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor.experimental import implicit_replication
     mesh = init_device_mesh("cpu", MESH_SHAPE, mesh_dim_names=MESH_NAMES)
-    rules = SH.AxisRules(seq_axis=None)
+    rules = SH.AxisRules()
     out = {}
     for case, (tree, cache_np, tokens) in arrays.items():
         _, cfg = _cfgs(case)
@@ -376,7 +376,7 @@ def _layout(case):
     with MESH.fake_world(4):
         from torch.distributed.device_mesh import init_device_mesh
         mesh = init_device_mesh("cpu", MESH_SHAPE, mesh_dim_names=MESH_NAMES)
-        return SH.cache_specs(cache, mesh, SH.AxisRules(seq_axis=None))
+        return SH.cache_specs(cache, mesh, SH.AxisRules())
 
 
 def test_the_cases_cover_the_layouts():

@@ -25,6 +25,7 @@ from conftest import run_in_devices
 from repro_torch.configs.base import smoke_config
 from repro_torch.launch import mesh as MESH
 from repro_torch.models import moe as MOE
+from repro_torch.parallel import collectives as C
 from repro_torch.parallel import ranks
 from repro_torch.parallel import sharding as SH
 
@@ -273,8 +274,9 @@ def test_a2a_falls_back_to_moe_ffn(where, monkeypatch):
 def test_staged_gathers_cuda_tensors_through_the_host_on_gloo(backend,
                                                               monkeypatch):
     """gloo's functional all-gather crashes its rank on a CUDA tensor, so
-    `_staged` hands the fsdp gather a host copy there, and the tensor
-    itself on any other backend or on the CPU."""
+    `collectives.staged` hands the fsdp gather (and the sequence
+    collectives) a host copy there, and the tensor itself on any other
+    backend or on the CPU."""
     import torch.distributed as dist
 
     class OnCard:
@@ -284,6 +286,6 @@ def test_staged_gathers_cuda_tensors_through_the_host_on_gloo(backend,
             return "host copy"
     monkeypatch.setattr(dist, "get_backend", lambda group: backend)
     card, host = OnCard(), torch.ones(2)
-    assert MOE._staged(host, None) is host
-    assert MOE._staged(card, None) == ("host copy" if backend == "gloo"
-                                       else card)
+    assert C.staged(host, None) is host
+    assert C.staged(card, None) == ("host copy" if backend == "gloo"
+                                    else card)
