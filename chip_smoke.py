@@ -277,7 +277,15 @@ a nonzero exit; nothing is caught):
    the sequence bytes a rank all-gathers and reduce-scatters in forward
    (backward mirrors them) and the weight bytes it gathers, each rank's
    peak memory. A record, not a claim: the ranks share one card and
-   exchange through the host.
+   exchange through the host. Then, in the same ranks, the int8 gradient
+   compression (no kernel: plain PyTorch, as the JAX package computes it
+   in jnp): `parallel.collectives.compressed_psum` of each rank's
+   gradient blocks (the `to_local()` of each leaf) over the 4 ranks, from
+   --seed, against the exact fp32 mean of the same leaves (a plain SUM
+   all-reduce): every element within its leaf's shared scale, each
+   leaf's mean signed error within 4 x scale / sqrt(numel). Printed
+   beside the card: its seconds and the plain all-reduce's, the int32
+   bytes a rank sends, the worst |error| / scale.
 10. One JSON line listing the kernels, then the result line.
 
 `--out FILE` also writes the full record (timings, shapes, profiles) as
@@ -288,6 +296,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -404,6 +413,12 @@ SEQ_RUN = dict(layers=2, batch=1, seq=4096)
 SEQ_LOGITS_TOL = dict(rtol=1e-5, atol=1e-5)
 SEQ_LOSS_RTOL = 1e-5
 SEQ_GRAD_TOL = 1e-4                 # of the gradient's largest |entry|
+# the compressed mean (int8, stochastic rounding) against the exact fp32
+# mean: every element within its leaf's shared scale (the hard bound; the
+# slack covers the two means' fp32 rounding), each leaf's mean signed error
+# within SEQ_COMPRESS_BIAS * scale / sqrt(numel)
+SEQ_COMPRESS_SLACK = 2.0 ** -10
+SEQ_COMPRESS_BIAS = 4.0
 BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 # device ops that are matrix products, by a part of their kernel's name
 MATMUL_KEYS = ("gemm", "matmul", "cutlass", "xmma", "cublas", "nvjet")
@@ -3922,6 +3937,9 @@ def seq_rank(rank, group, device, seed, tmp):
     finally:
         C.gather_seq = real["gather_seq"]
         C.reduce_scatter_seq = real["reduce_scatter_seq"]
+    compressed = seq_compressed_mean(
+        {name: g.to_local().detach() for name, g in res["grads"].items()},
+        group, seed, device)
     path = os.path.join(tmp, f"seq{rank}")
     if rank == 0:
         np.save(f"{path}.logits.npy", res["logits"].to_local().cpu().numpy())
@@ -3936,7 +3954,61 @@ def seq_rank(rank, group, device, seed, tmp):
     return dict(path=path, grads=names, model_rank=mesh.get_local_rank(
         "model"), loss=float(res["loss"].to_local()),
         prefill_s=res["prefill_s"], step_s=res["step_s"], moved=moved,
-        peak_bytes=torch.cuda.max_memory_allocated(device) if on_card else 0)
+        peak_bytes=torch.cuda.max_memory_allocated(device) if on_card else 0,
+        compressed=compressed)
+
+
+def seq_compressed_mean(leaves: dict, group, seed: int, device) -> dict:
+    """Phase 9's int8 gradient compression on one rank: `compressed_psum`
+    of this rank's gradient blocks over the group, from `seed`, held
+    against the exact fp32 mean (a plain SUM all-reduce of the same
+    leaves): every element within its leaf's shared scale, each leaf's
+    mean signed error within SEQ_COMPRESS_BIAS * scale / sqrt(numel).
+    Raises on a miss; returns the seconds, the payload bytes and the
+    worst |error| / scale."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.parallel import collectives as C
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    n = dist.get_world_size(group)
+    sync()
+    t0 = time.perf_counter()
+    got = C.compressed_psum(leaves, group, seed=seed)
+    sync()
+    t1 = time.perf_counter()
+    exact = {}
+    for name, leaf in leaves.items():
+        s = leaf.to(torch.float32).clone()
+        dist.all_reduce(s, op=dist.ReduceOp.SUM, group=group)
+        exact[name] = s / n
+    sync()
+    t2 = time.perf_counter()
+    worst, worst_bias = 0.0, 0.0
+    for name, leaf in leaves.items():
+        scale = C.int8_scale(leaf)
+        dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+        scale = float(scale)
+        err = got[name].to(torch.float32) - exact[name]
+        e = float(err.abs().max())
+        bias = abs(float(err.double().mean()))
+        assert e <= scale * (1 + SEQ_COMPRESS_SLACK), (
+            f"phase 9: compressed mean of {name}: max |err| {e} over its "
+            f"shared scale {scale}")
+        assert bias <= SEQ_COMPRESS_BIAS * scale / math.sqrt(leaf.numel()), (
+            f"phase 9: compressed mean of {name}: mean signed error {bias} "
+            f"(scale {scale}, {leaf.numel()} elements)")
+        worst = max(worst, e / scale)
+        worst_bias = max(worst_bias,
+                         bias * math.sqrt(leaf.numel()) / scale)
+    numel = sum(leaf.numel() for leaf in leaves.values())
+    return dict(seconds=t1 - t0, fp32_allreduce_s=t2 - t1,
+                leaves=len(leaves), elements=numel,
+                int32_bytes=4 * numel, scale_bytes=4 * len(leaves),
+                max_err_over_scale=worst,
+                max_bias_sqrt_numel_over_scale=worst_bias)
 
 
 def seq_block(t, spec, model_rank: int, n: int):
@@ -4035,6 +4107,25 @@ def seq_phase(args, dev, record):
         + f" GiB by rank [{record['card']}; {n} gloo ranks on one card, a "
         f"record, not a claim]; ranks {rec['ranks_s']:.1f} s, check "
         f"{rec['check_s']:.1f} s")
+    cm = rec["compressed_mean"] = dict(
+        outs[0]["compressed"],
+        seconds=max(o["compressed"]["seconds"] for o in outs),
+        fp32_allreduce_s=max(o["compressed"]["fp32_allreduce_s"]
+                             for o in outs),
+        max_err_over_scale=max(o["compressed"]["max_err_over_scale"]
+                               for o in outs),
+        max_bias_sqrt_numel_over_scale=max(
+            o["compressed"]["max_bias_sqrt_numel_over_scale"] for o in outs))
+    log(f"phase 9: int8 compressed gradient mean (compressed_psum, seed "
+        f"{args.seed}) of each rank's {cm['leaves']} gradient blocks "
+        f"({cm['elements']} elements) over {n} gloo ranks: "
+        f"{cm['seconds']:.3f} s (the plain fp32 SUM all-reduce of the same "
+        f"leaves {cm['fp32_allreduce_s']:.3f} s); a rank sends "
+        f"{cm['int32_bytes']} B of int32 codes (the fp32 payload's bytes) "
+        f"and {cm['scale_bytes']} B of scales; worst |err| / scale "
+        f"{cm['max_err_over_scale']:.4f} (bound 1), worst mean signed error "
+        f"x sqrt(numel) / scale {cm['max_bias_sqrt_numel_over_scale']:.4f} "
+        f"(bound {SEQ_COMPRESS_BIAS:g}) [{record['card']}]")
 
 
 def main() -> int:

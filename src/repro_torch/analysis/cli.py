@@ -26,24 +26,12 @@ import json
 import os
 import subprocess
 import sys
-from typing import Dict, List, Optional, Sequence
+from typing import List, Optional, Sequence
 
 from repro_torch.analysis import deadcode, lint, rules
 
 DEFAULT_BASELINE = "src/repro_torch/analysis/baseline.json"
 DEFAULT_PATH = "src/repro_torch"
-
-
-def _load_sources(paths: Sequence[str], root: str) -> Dict[str, str]:
-    sources: Dict[str, str] = {}
-    for fp in lint.iter_python_files(paths):
-        rel = lint.relpath_for(fp, root)
-        try:
-            with open(fp, "r", encoding="utf-8") as fh:
-                sources[rel] = fh.read()
-        except OSError:
-            continue
-    return sources
 
 
 def bytecode_guard(root: str) -> List[str]:
@@ -109,7 +97,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             print("bytecode-guard: clean")
             return 0
 
-    sources = _load_sources(paths, root)
+    sources = lint.load_sources(paths, root)
 
     if args.dead_code:
         report = deadcode.dead_code_report(sources)

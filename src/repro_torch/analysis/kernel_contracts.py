@@ -22,11 +22,13 @@ affineness) have no CUDA counterpart: a CUDA launch has neither. Nothing
 here falls back to "feasible": an instance the model cannot classify is an
 error finding.
 
-Runs two ways, neither of which touches a device:
+Runs these ways, none of which touches a device:
 
 * ``python -m repro_torch.analysis src/repro_torch --kernel-contracts``:
   KC005 over the tree plus KC001/KC002/KC004 over every registered
   launcher's reference instantiation and the reference plans' verdicts;
+* :func:`gate_paths` (the CLI's gate over a list of paths) and
+  :func:`reference_findings` (the findings of the registered references);
 * :func:`contract_report`: one plan's feasibility on one graph shape,
   which `GraphSession.executable()` runs before it builds a tiles plan
   (a `KernelContractWarning`, or `KernelBudgetError` under
@@ -36,10 +38,11 @@ from __future__ import annotations
 
 import ast
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.analysis import smem
-from repro_torch.analysis.lint import Finding
+from repro_torch.analysis.lint import Finding, load_sources
 from repro_torch.kernels import contracts as C
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +75,11 @@ class KernelCheck:
     @property
     def errors(self) -> Tuple[ContractFinding, ...]:
         return tuple(f for f in self.findings if f.severity == "error")
+
+    @property
+    def warnings(self) -> Tuple[ContractFinding, ...]:
+        """Warning findings: always empty in the port (no rule warns)."""
+        return tuple(f for f in self.findings if f.severity == "warning")
 
     @property
     def feasible(self) -> bool:
@@ -439,6 +447,17 @@ def _kernels_relpath(module: str) -> str:
     return f"src/repro_torch/kernels/{module}.py"
 
 
+def reference_findings() -> List[ContractFinding]:
+    """KC001/KC002/KC004 over every registered kernel's reference
+    instantiation (the JAX package's KC003 is a TPU tiling lint with no
+    CUDA counterpart)."""
+    out: List[ContractFinding] = []
+    for name in C.registered_kernels():
+        out.extend(check_contract(C.REGISTRY[name].reference_contract())
+                   .findings)
+    return out
+
+
 def _launch_sites(tree: ast.AST) -> List[Tuple[str, int]]:
     """(enclosing function name, line) for each ``_build.launch(`` call."""
     sites: List[Tuple[str, int]] = []
@@ -513,3 +532,11 @@ def run_gate(sources: Dict[str, str]) -> Tuple[List[Finding], List[Finding]]:
                 message=f"reference plan {name}: {rep.summary()}; expected "
                         f"{'fits' if feasible else 'OVER BUDGET'}"))
     return errors, []
+
+
+def gate_paths(paths: Sequence[str],
+               root: Optional[str] = None) -> Tuple[List[Finding],
+                                                    List[Finding]]:
+    """Load the sources under `paths` (paths relative to `root`, default
+    the working directory) and run the gate (`run_gate`)."""
+    return run_gate(load_sources(paths, root or os.getcwd()))

@@ -222,6 +222,19 @@ def relpath_for(path: str, root: Optional[str] = None) -> str:
     return rel.replace(os.sep, "/")
 
 
+def load_sources(paths: Sequence[str], root: str) -> Dict[str, str]:
+    """{repo-relative path: source} of the Python files under `paths`
+    (unreadable files skipped): the CLI's and the contract gate's loader."""
+    sources: Dict[str, str] = {}
+    for fp in iter_python_files(paths):
+        try:
+            with open(fp, "r", encoding="utf-8") as fh:
+                sources[relpath_for(fp, root)] = fh.read()
+        except OSError:
+            continue
+    return sources
+
+
 def lint_source(
     source: str,
     path: str,

@@ -29,11 +29,31 @@ gloo's functional all-gather crashes its rank on a CUDA tensor (torch 2.11
 on the H100; its all-to-all and all-reduce run), so on a gloo group a CUDA
 tensor goes through the host (`staged`) and comes back to its device; the
 copies are differentiable.
+
+int8 gradient compression (the JAX package's optional data-parallel
+gradient sync) takes the mean of a gradient tree over the group with
+stochastic rounding, unbiased (E[deq(q(x))] = x):
+  * `quantize_int8` / `dequantize_int8`: one tensor's codes and its scale;
+  * `compressed_psum`: per leaf, a shared scale (an fp32 `MAX` all-reduce
+    of one element), the leaf's int8 codes widened to int32 and summed
+    exactly (an int32 `SUM` all-reduce), then the codes' sum times the
+    scale over the group size, in the leaf's dtype.
+The sum of n int8 codes needs more than 8 bits, so the payload on the
+wire is int32: 4 bytes an element, the bytes of an fp32 all-reduce, plus
+4 bytes a leaf for the scale. The JAX function widens to int32 before its
+`psum` too; this computes the same sums, in its fp32 order. Each leaf
+rounds with its own stream, a `torch.Generator` on the leaf's device
+seeded from (seed, leaf index, rank), as the JAX function folds its key
+with the leaf index and then the axis index. `stochastic_round_int8` takes
+the uniform draws as an argument, so a test can feed the JAX function's
+draws. A CUDA tensor on a gloo group goes through gloo's all-reduce,
+which takes it.
 """
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -176,3 +196,77 @@ def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
     """The elementwise maximum of `t` over the group, on every rank; no
     gradient flows through it."""
     return _all_reduce(t.detach(), group, "max")
+
+
+# ---------------------------------------------------- gradient compression --
+
+def int8_scale(x: torch.Tensor) -> torch.Tensor:
+    """The fp32 grid step (0-d) that puts max |x| at code 127."""
+    amax = x.abs().max().to(torch.float32)
+    return torch.maximum(amax, amax.new_tensor(1e-30)) / 127.0
+
+
+def stochastic_round_int8(x: torch.Tensor, scale: torch.Tensor,
+                          u: torch.Tensor) -> torch.Tensor:
+    """int8 codes of `x` on the grid of `scale`: floor(x / scale), one up
+    where the uniform draw `u` (fp32 in [0, 1), x's shape) is below the
+    remainder, clipped to [-127, 127]."""
+    y = x.to(torch.float32) / scale
+    lo = torch.floor(y)
+    up = (u < y - lo).to(torch.float32)
+    return torch.clamp(lo + up, -127, 127).to(torch.int8)
+
+
+def quantize_int8(x: torch.Tensor, generator: torch.Generator = None):
+    """Stochastic-rounding int8 quantization with draws from `generator`
+    (one on x's device; None: the device's default). Returns (q, scale)."""
+    scale = int8_scale(x)
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return stochastic_round_int8(x, scale, u), scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def _leaf_generator(seed: int, leaf: int, rank: int,
+                    device) -> torch.Generator:
+    """The rounding stream of leaf number `leaf` on `rank`: a generator on
+    `device` seeded from (seed, leaf, rank)."""
+    state = np.random.SeedSequence([seed, leaf, rank]).generate_state(
+        1, np.uint64)
+    return torch.Generator(device=device).manual_seed(
+        int(state[0]) & (2**63 - 1))
+
+
+def compressed_psum(tree, group=None, seed: int = 0, *, draws=None):
+    """The mean over `group` of a gradient tree, sent as int8 codes.
+
+    `tree` is a dict of tensors (its leaves numbered in sorted key order,
+    as JAX flattens a dict) or a list of them; every rank passes the same
+    structure and shapes, and gets the same structure back. Each leaf
+    takes the group's largest scale (every rank encodes on one grid) and
+    rounds with draws from a generator seeded from (seed, i, rank), i its
+    leaf number, or with `draws(i, leaf)` when given (uniform fp32 draws
+    of the leaf's shape); its codes' exact int32 sum comes back as
+    sum * scale / n in the leaf's dtype.
+    """
+    n = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    keys = sorted(tree) if isinstance(tree, dict) else range(len(tree))
+    out = {}
+    for i, k in enumerate(keys):
+        leaf = tree[k]
+        scale = int8_scale(leaf)
+        dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+        if draws is None:
+            gen = _leaf_generator(seed, i, rank, leaf.device)
+            u = torch.rand(leaf.shape, generator=gen, device=leaf.device)
+        else:
+            u = draws(i, leaf)
+        s = stochastic_round_int8(leaf, scale, u).to(torch.int32)
+        dist.all_reduce(s, op=dist.ReduceOp.SUM, group=group)
+        out[k] = (s.to(torch.float32) * scale / n).to(leaf.dtype)
+    if isinstance(tree, dict):
+        return {k: out[k] for k in tree}
+    return [out[i] for i in keys]

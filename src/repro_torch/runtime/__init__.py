@@ -6,8 +6,9 @@ package's `runtime/`):
 
 * `config` — `RuntimeConfig` (the cache dir and its cap, pre-warm and its
   limit, plan sharing, the kernel formulation switch, the fault schedule
-  and its seed, the concurrency sanitizer) with explicit-arg > env >
-  default precedence.
+  and its seed, the concurrency sanitizer, the kernel contracts' budget,
+  the tcmalloc path) with explicit-arg > env > default precedence, plus
+  the `launch_env()` launch hygiene.
 * `fingerprint` — content fingerprints: the graph's CSR hash, the
   torch/CUDA/card environment, a plan record's fingerprint and a kernel
   library's (source, flags, toolkit, card).
@@ -29,7 +30,7 @@ attach (background thread, observable progress).
 from repro_torch.runtime.artifact_cache import (ArtifactCache,
                                                 artifact_cache_for)
 from repro_torch.runtime.config import (RuntimeConfig, configure,
-                                        get_runtime_config,
+                                        get_runtime_config, launch_env,
                                         reset_runtime_config, runtime_scope)
 from repro_torch.runtime.faults import (DevicePressure, FaultInjected,
                                         FaultInjector, FaultSpec,
@@ -41,10 +42,11 @@ from repro_torch.runtime.fingerprint import (environment_fingerprint,
                                              kernel_fingerprint,
                                              plan_fingerprint)
 from repro_torch.runtime.plan_registry import (registry_reset, registry_size,
+                                               registry_stats,
                                                reset_process_caches)
 
 __all__ = [
-    "RuntimeConfig", "configure", "get_runtime_config",
+    "RuntimeConfig", "configure", "get_runtime_config", "launch_env",
     "reset_runtime_config", "runtime_scope",
     "ArtifactCache", "artifact_cache_for",
     "DevicePressure", "FaultInjected", "FaultInjector", "FaultSpec",
@@ -52,5 +54,6 @@ __all__ = [
     "uninstall_faults",
     "environment_fingerprint", "graph_fingerprint", "kernel_fingerprint",
     "plan_fingerprint",
-    "registry_reset", "registry_size", "reset_process_caches",
+    "registry_reset", "registry_size", "registry_stats",
+    "reset_process_caches",
 ]

@@ -40,10 +40,22 @@ REPRO_STRICT_CONTRACTS '1'/'0': a plan whose kernels fail their contract
 
 `smem_budget_bytes` and `strict_contracts` are the counterparts of the JAX
 package's `vmem_budget_bytes` and `strict_contracts`, named for what they
-bound on this card. The JAX package's other fields (Pallas interpret mode,
-the fake host device count, tcmalloc and its launch environment)
-configure nothing here. Parsing reads no device: resolving a config never
+bound on this card. The JAX package's other two fields configure nothing
+here: Pallas interpret mode (a CUDA kernel has none) and the fake host
+device count (the dry-run's fake process group takes each production
+mesh's size itself). Parsing reads no device: resolving a config never
 initializes CUDA.
+
+`launch_env()` is the launch hygiene of the JAX package's config as code:
+the environment a launcher shell exports before the python process starts
+(tcmalloc must be `LD_PRELOAD`ed before the process allocates, so a
+running process cannot apply it to itself; hence a helper that returns
+the variables rather than sets them). It holds
+`TCMALLOC_LARGE_ALLOC_REPORT_THRESHOLD` (tcmalloc's large-allocation
+reports off for graph-sized host buffers), `LD_PRELOAD` (only when
+`tcmalloc_path` exists on this machine) and `REPRO_CACHE_DIR` (when the
+cache is on). The JAX package's `TF_CPP_MIN_LOG_LEVEL` and `XLA_FLAGS`
+are left out: only XLA reads them.
 
 The module keeps one process-wide singleton (`get_runtime_config`), replaced
 by `configure(...)` and scoped by the `runtime_scope(...)` context manager
@@ -60,6 +72,8 @@ from typing import Optional
 from repro_torch.analysis.smem import DEFAULT_SMEM_BUDGET
 
 _KERNELS = ("auto", "off")
+# the conventional tcmalloc path on x86-64 Debian/Ubuntu images
+DEFAULT_TCMALLOC = "/usr/lib/x86_64-linux-gnu/libtcmalloc.so.4"
 DEFAULT_CACHE_MAX_BYTES = 1 << 30            # 1 GiB
 DEFAULT_PREWARM_LIMIT = 64
 
@@ -127,6 +141,8 @@ class RuntimeConfig:
     # -- kernel contracts (the session's gate) -------------------------------
     smem_budget_bytes: int = DEFAULT_SMEM_BUDGET   # per-CTA shared memory
     strict_contracts: bool = False           # failing plan: raise vs warn
+    # -- launch hygiene (launch_env) -----------------------------------------
+    tcmalloc_path: str = DEFAULT_TCMALLOC
 
     def __post_init__(self):
         if self.kernel_backend not in _KERNELS:
@@ -197,9 +213,22 @@ class RuntimeConfig:
             values[key] = val
         return cls(**values)
 
+    def replace(self, **changes) -> "RuntimeConfig":
+        return dataclasses.replace(self, **changes)
+
     @property
     def cache_enabled(self) -> bool:
         return self.cache_dir is not None
+
+    def launch_env(self) -> dict:
+        """The environment a launcher exports before starting python (see
+        the module docstring)."""
+        env = {"TCMALLOC_LARGE_ALLOC_REPORT_THRESHOLD": "60000000000"}
+        if self.tcmalloc_path and os.path.exists(self.tcmalloc_path):
+            env["LD_PRELOAD"] = self.tcmalloc_path
+        if self.cache_dir is not None:
+            env["REPRO_CACHE_DIR"] = self.cache_dir
+        return env
 
 
 # ------------------------------------------------------- process singleton --
@@ -246,3 +275,8 @@ def runtime_scope(**explicit):
     finally:
         with _lock:
             _current = prev
+
+
+def launch_env(**explicit) -> dict:
+    """`RuntimeConfig.resolve(**explicit).launch_env()`: launcher shorthand."""
+    return RuntimeConfig.resolve(**explicit).launch_env()

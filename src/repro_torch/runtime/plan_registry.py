@@ -30,12 +30,18 @@ from typing import Any, Optional
 
 _lock = threading.Lock()
 _plans: dict = {}
+_hits = 0
 
 
 def registry_get(key) -> Optional[Any]:
-    """The shared plan for `(graph_hash, device, plan_key)`, if published."""
+    """The shared plan for `(graph_hash, device, plan_key)`, if published
+    (a hit counts in `registry_stats`)."""
+    global _hits
     with _lock:
-        return _plans.get(key)
+        fn = _plans.get(key)
+        if fn is not None:
+            _hits += 1
+        return fn
 
 
 def registry_put(key, fn) -> Any:
@@ -56,10 +62,19 @@ def registry_size() -> int:
         return len(_plans)
 
 
+def registry_stats() -> dict:
+    """Entries held and hits served since the last reset."""
+    with _lock:
+        return dict(plans=len(_plans), hits=_hits)
+
+
 def registry_reset() -> None:
-    """Drop every shared plan (tests / explicit invalidation)."""
+    """Drop every shared plan and zero the hits (tests / explicit
+    invalidation)."""
+    global _hits
     with _lock:
         _plans.clear()
+        _hits = 0
 
 
 def reset_process_caches() -> None:

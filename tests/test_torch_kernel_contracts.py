@@ -12,7 +12,9 @@
   grid; each rule fires on a plan that breaks it (KC001, KC002, KC004);
 * KC005 fires on a `_build.launch` without a contract; the registry covers
   every launch site of the tree; the reference contracts are clean and the
-  refusing reference plan is refused;
+  refusing reference plan is refused; `gate_paths` (the CLI's loader)
+  over `src/repro_torch` finds nothing and over a stray launcher finds
+  KC005; `reference_findings` and every `KernelCheck.warnings` are empty;
 * the session gate (mirroring the JAX package's tests): warns once, then
   silent; strict refuses twice with nothing cached; the gather formulation
   is skipped; a feasible plan is silent; the sharded plan is gated on gloo
@@ -34,7 +36,7 @@ from repro.core import bfs as JB
 from repro.core import graph as JG
 from repro.core import hybrid_bfs as JH
 from repro_torch.analysis import kernel_contracts as KC
-from repro_torch.analysis import smem
+from repro_torch.analysis import lint, smem
 from repro_torch.core import bfs as TB
 from repro_torch.core import ell as TELL
 from repro_torch.core import graph as TG
@@ -300,6 +302,42 @@ def test_reference_contracts_and_plans():
     refused = reports["scale16-under-budget"]
     assert {f["rule"] for c in refused["checks"] for f in c["findings"]} \
         == {"KC001"}
+
+
+def test_gate_paths_over_the_port_is_clean():
+    assert KC.gate_paths([os.path.join(REPO, "src", "repro_torch")],
+                         root=REPO) == ([], [])
+    # the same loader as the CLI's: repo-relative paths, so KC005 scopes
+    sources = lint.load_sources([KERNELS_DIR], REPO)
+    assert sorted(sources) == sorted(
+        f"src/repro_torch/kernels/{n}" for n in os.listdir(KERNELS_DIR)
+        if n.endswith(".py"))
+
+
+def test_gate_paths_fires_on_a_launch_without_contract(tmp_path):
+    kernels = tmp_path / "src" / "repro_torch" / "kernels"
+    kernels.mkdir(parents=True)
+    (kernels / "newk.py").write_text(
+        "from repro_torch.kernels import _build\n\n"
+        "def newk_cuda(x):\n"
+        "    _build.launch('newk', x.data_ptr(), device=0, stream=0)\n")
+    errors, warns = KC.gate_paths([str(tmp_path / "src")], root=str(tmp_path))
+    assert [(f.rule, f.path, f.line) for f in errors] == \
+        [("KC005", "src/repro_torch/kernels/newk.py", 4)]
+    assert warns == []
+
+
+def test_reference_findings_and_warnings_are_empty():
+    assert KC.reference_findings() == []
+    for name in C.registered_kernels():
+        check = KC.check_contract(C.REGISTRY[name].reference_contract())
+        assert check.warnings == () and check.errors == ()
+    # a failing check's findings are errors, never warnings
+    bad = KC.check_contract(C.pull_contract(8, 4096, 32, 65536),
+                            budget_bytes=1024)
+    assert bad.errors and bad.warnings == ()
+    # the JAX package's reference findings are its TPU tiling lints only
+    assert {f.rule for f in JKC.reference_findings()} <= {"KC003"}
 
 
 def test_typed_errors():

@@ -3,7 +3,9 @@
 Each test mirrors one of `tests/test_runtime.py`:
 
 * `RuntimeConfig`: the cache fields resolve alike (explicit > env >
-  default) and refuse alike; parsing reads no device;
+  default) and refuse alike; parsing reads no device; `replace` as the
+  JAX one; `launch_env` is the JAX package's environment without the keys
+  only XLA reads (`LD_PRELOAD` only when the library exists);
 * fingerprints: `graph_fingerprint` gives the JAX function's hex digest
   for the same graph; plan and kernel fingerprints move with each input;
 * the artifact cache: one sequence of stores, loads, a truncated record,
@@ -14,7 +16,8 @@ Each test mirrors one of `tests/test_runtime.py`:
 * sharing: a second session over a rebuilt identical graph materializes
   no plan (the JAX package's second session neither), one with
   `share_plans=False` builds its own; more sessions than cores on their
-  own threads build each plan and the tiles once;
+  own threads build each plan and the tiles once; `registry_stats`
+  counts the second session's hits;
 * pre-warm: progress, the limit, a stop and join, a pass that dies;
 * restart: two child processes on one cache dir (`bfs_serve
   .run_restart_probe`): the warm child builds no cohort plan on its
@@ -51,7 +54,8 @@ from repro_torch.core.bfs import BFSConfig
 from repro_torch.engine import BFSServer, Engine, GraphSession
 from repro_torch.kernels import _build
 from repro_torch.runtime import (RuntimeConfig, artifact_cache_for,
-                                 registry_size, reset_process_caches,
+                                 registry_size, registry_stats,
+                                 reset_process_caches,
                                  runtime_scope)
 from repro_torch.runtime import artifact_cache as TAC
 from repro_torch.runtime import config as TCFG
@@ -110,6 +114,50 @@ def test_config_precedence_explicit_over_env_over_default(tmp_path):
         (str(tmp_path), True, 2 << 20)
     assert RuntimeConfig.resolve(env, cache_dir=None).cache_dir == "/env/dir"
     assert RuntimeConfig.resolve(env, cache_dir="").cache_dir is None
+
+
+XLA_ONLY_KEYS = {"TF_CPP_MIN_LOG_LEVEL", "XLA_FLAGS"}
+
+
+def test_launch_env_shape(tmp_path):
+    env = RuntimeConfig(cache_dir="/tmp/c").launch_env()
+    assert env["REPRO_CACHE_DIR"] == "/tmp/c"
+    assert env["TCMALLOC_LARGE_ALLOC_REPORT_THRESHOLD"] == "60000000000"
+    assert not XLA_ONLY_KEYS & set(env)
+    # LD_PRELOAD only when the library exists on this machine
+    missing = RuntimeConfig(tcmalloc_path="/no/such/lib.so").launch_env()
+    assert "LD_PRELOAD" not in missing and "REPRO_CACHE_DIR" not in missing
+    lib = tmp_path / "libtcmalloc.so.4"
+    lib.write_bytes(b"")
+    assert RuntimeConfig(tcmalloc_path=str(lib)).launch_env()[
+        "LD_PRELOAD"] == str(lib)
+    assert RuntimeConfig().tcmalloc_path == JCFG.DEFAULT_TCMALLOC
+
+
+@pytest.mark.parametrize("explicit", [
+    {}, {"cache_dir": "/arg/dir"}, {"cache_dir": ""},
+    {"tcmalloc_path": "/no/such/lib.so", "cache_dir": "/c"}])
+def test_launch_env_is_the_jax_env_without_the_xla_keys(monkeypatch,
+                                                        explicit):
+    monkeypatch.delenv("REPRO_CACHE_DIR", raising=False)
+    want = JCFG.launch_env(**explicit)
+    got = TCFG.launch_env(**explicit)
+    assert got == {k: v for k, v in want.items() if k not in XLA_ONLY_KEYS}
+    assert got == RuntimeConfig.resolve(**explicit).launch_env()
+
+
+def test_replace_like_jax():
+    base = RuntimeConfig.resolve({}, cache_dir="/c")
+    new = base.replace(prewarm=False, cache_max_bytes=4096)
+    assert (new.cache_dir, new.prewarm, new.cache_max_bytes) == \
+        ("/c", False, 4096)
+    assert base.prewarm is True          # frozen: the original stays
+    ref = JCFG.RuntimeConfig.resolve({}, cache_dir="/c").replace(
+        prewarm=False, cache_max_bytes=4096)
+    assert [getattr(new, f) for f in CACHE_FIELDS] == \
+        [getattr(ref, f) for f in CACHE_FIELDS]
+    with pytest.raises(ValueError, match="cache_max_bytes"):
+        base.replace(cache_max_bytes=0)
 
 
 @pytest.mark.parametrize("text", ["1048576", "512MB", "2gb", "1.5 KB", "3K",
@@ -532,6 +580,22 @@ def test_sessions_share_plans_by_content_hash():
         assert j2.total_materialized == 0
     jax_registry_reset()
     assert np.array_equal(r2.parent, np.asarray(jr.parent))
+
+
+def test_registry_stats_count_the_shared_hits():
+    """A session that publishes hits nothing; a second one over the same
+    graph hits its three plans and the tiles; a reset zeroes both."""
+    with runtime_scope(cache_dir=None, share_plans=True):
+        s1 = GraphSession(TG.rmat(9, seed=7), "cpu")
+        Engine(s1).bfs(ROOTS, BFSConfig(), backend="fused")
+        assert registry_stats() == dict(plans=COHORT_PLANS + 2, hits=0)
+        s2 = GraphSession(TG.rmat(9, seed=7), "cpu")
+        Engine(s2).bfs(ROOTS, BFSConfig(), backend="fused")
+        assert registry_stats() == dict(plans=COHORT_PLANS + 2,
+                                        hits=COHORT_PLANS + 1)
+        assert registry_stats()["plans"] == registry_size()
+    reset_process_caches()
+    assert registry_stats() == dict(plans=0, hits=0)
 
 
 def test_share_plans_off_keeps_sessions_isolated():
