@@ -1,0 +1,11 @@
+"""driver.levels_share.g500: the level driver's per-level seconds (each
+level's step up to its device fence) summed over the window's
+`LevelDriver.run` spans, as a share of the summed wall of the window's
+queries. Closed-loop cells."""
+
+
+def read(r):
+    wall = sum(s["t1"] - s["t0"] for s in r.searches)
+    if r.loop != "closed" or not r.driver_runs or wall <= 0:
+        return None
+    return 100.0 * sum(d["levels_s"] for d in r.driver_runs) / wall
