@@ -68,6 +68,7 @@ from repro_torch.core import frontier as fr
 from repro_torch.core.graph import Graph
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as K
+from repro_torch.runtime import trace
 
 INT_MAX = int(np.iinfo(np.int32).max)
 
@@ -937,9 +938,11 @@ def batch_scalars(st: BatchState) -> dict:
 
 def finalize(st) -> tuple[np.ndarray, np.ndarray]:
     """Sentinels -> Graph500 conventions (-1 for unreached), host numpy.
-    Works on a `BFSState` ([V]) or a `BatchState` ([B, V])."""
+    Works on a `BFSState` ([V]) or a `BatchState` ([B, V]). The mapping
+    after the copy to the host is the `finalize.map` span."""
     parent = st.parent.cpu().numpy()
     level = st.level.cpu().numpy()
-    parent = np.where(parent == INT_MAX, -1, parent)
-    level = np.where(level == INT_MAX, -1, level)
-    return parent.astype(np.int32), level.astype(np.int32)
+    with trace.span("finalize.map"):
+        parent = np.where(parent == INT_MAX, -1, parent)
+        level = np.where(level == INT_MAX, -1, level)
+        return parent.astype(np.int32), level.astype(np.int32)

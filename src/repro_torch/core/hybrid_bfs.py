@@ -68,6 +68,7 @@ from repro_torch.core.partition import (PartitionedGraph, PartitionPlan,
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as K
 from repro_torch.parallel import collectives as C
+from repro_torch.runtime import trace
 
 # The 11 fields of the JAX package's stepper state dict, in its order.
 HYBRID_STATE_FIELDS = ("visited", "frontier", "pcand", "lcand", "cur", "bu",
@@ -398,15 +399,17 @@ def make_hybrid_search(pg: PartitionedGraph,
 
 def finalize_hybrid(plan: PartitionPlan, parent_new, level_new):
     """Padded new-id results (tensors or numpy) -> original ids, Graph500
-    conventions (-1), host numpy."""
+    conventions (-1), host numpy. The mapping after the copy to the host
+    is the `finalize.map` span, as in `bfs.finalize`."""
     parent_new, level_new = (x.cpu().numpy() if isinstance(x, torch.Tensor)
                              else np.asarray(x)
                              for x in (parent_new, level_new))
-    parent_new = np.where(parent_new == INT_MAX, -1, parent_new)
-    level_new = np.where(level_new == INT_MAX, -1, level_new)
-    parent = unpermute_ids(plan, parent_new)
-    level = unpermute(plan, level_new.astype(np.int64)).astype(np.int32)
-    return parent.astype(np.int32), level
+    with trace.span("finalize.map"):
+        parent_new = np.where(parent_new == INT_MAX, -1, parent_new)
+        level_new = np.where(level_new == INT_MAX, -1, level_new)
+        parent = unpermute_ids(plan, parent_new)
+        level = unpermute(plan, level_new.astype(np.int64)).astype(np.int32)
+        return parent.astype(np.int32), level
 
 
 def hybrid_bfs(pg: PartitionedGraph, root_orig: int,

@@ -63,6 +63,7 @@ from repro_torch.engine.level_loop import (BSPStepBackend,
 from repro_torch.engine.result import (TraversalResult,
                                        edges_traversed_from_levels)
 from repro_torch.engine.session import GraphSession
+from repro_torch.runtime import trace
 from repro_torch.runtime.faults import fault_point
 
 BACKENDS = ("fused", "sharded", "stepper")
@@ -96,9 +97,16 @@ class QueryPlan:
     hub_edge_fraction: float
 
 
+def query_bucket(backend: str, n_roots: int, batched: bool) -> int:
+    """The lanes a query's search runs at: the batch bucket of a batched
+    fused query, else 1 (roots one at a time)."""
+    return _bucket_batch(n_roots) if backend == "fused" and batched else 1
+
+
 def _tree_depth(level: np.ndarray) -> np.ndarray:
     """Deepest discovered BFS level per root (0 when only the root)."""
-    return np.where(level >= 0, level, 0).max(axis=1).astype(np.int32)
+    with trace.span("engine.tree_depth"):
+        return np.where(level >= 0, level, 0).max(axis=1).astype(np.int32)
 
 
 class Engine:
@@ -233,7 +241,14 @@ class Engine:
                  batched: bool = True, validate: bool = False,
                  on_level: Optional[Callable] = None,
                  control: Optional[QueryControl] = None) -> TraversalResult:
-        """Run a query whose knobs were already resolved by `plan()`."""
+        """Run a query whose knobs were already resolved by `plan()`: the
+        `engine.query` span (`runtime.trace`) and everything under it."""
+        with trace.span("engine.query", backend=plan.backend) as q:
+            return self._query(q, roots, plan, batched, validate, on_level,
+                               control)
+
+    def _query(self, q, roots, plan, batched, validate, on_level,
+               control) -> TraversalResult:
         if on_level is not None and not (
                 plan.backend == "stepper"
                 or (plan.backend == "fused" and batched)):
@@ -246,6 +261,9 @@ class Engine:
         # the recovery path).
         check_point(control, ("device", dict(backend=plan.backend)))
         roots_arr = self._normalize_roots(roots)
+        q.attrs.update(roots=int(roots_arr.size),
+                       bucket=query_bucket(plan.backend, roots_arr.size,
+                                           batched))
         if roots_arr.size == 0:
             v = self.graph.num_vertices
             return TraversalResult(
@@ -266,8 +284,10 @@ class Engine:
         else:
             res = self._bfs_fused(roots_arr, plan.hcfg.bfs, batched, control,
                                   on_level)
-        res.edges_traversed = edges_traversed_from_levels(self.graph.degrees,
-                                                          res.level)
+        with trace.span("engine.assemble"), \
+                trace.span("engine.edges_traversed"):
+            res.edges_traversed = edges_traversed_from_levels(
+                self.graph.degrees, res.level)
         if validate:
             res.validate(self.graph)
         return res
@@ -323,41 +343,44 @@ class Engine:
             if control is not None:
                 control.check()      # the warm-up may outlive a deadline
             cb = (lambda row: on_level(-1, row)) if on_level else None
-            t0 = time.perf_counter()
+            driver = LevelDriver(backend)
             try:
-                parent, level, rows, _timings = LevelDriver(backend).run(
-                    lanes, cb, control)
+                parent, level, rows, _timings = driver.run(lanes, cb,
+                                                           control)
             except (QueryCancelled, QueryDeadlineExceeded) as e:
                 e.per_level_stats = [e.per_level_stats]
                 raise
-            dt = time.perf_counter() - t0
-            parent, level = parent[:b], level[:b]
-            return TraversalResult(roots_arr, parent, level,
-                                   _tree_depth(level), dt, np.full(b, dt / b),
-                                   "fused", 1, e_und,
-                                   batch_level_stats=rows)
+            with trace.span("engine.assemble"):
+                dt = driver.run_s
+                parent, level = parent[:b], level[:b]
+                return TraversalResult(roots_arr, parent, level,
+                                       _tree_depth(level), dt,
+                                       np.full(b, dt / b), "fused", 1, e_und,
+                                       batch_level_stats=rows)
         # Graph500 mode: one root at a time through the B=1 cohort.
         backend = self._cohort_backend(cfg, 1, use)
         backend.fault_ctx = dict(mode="scalar", kernels=kernels)
         self.session.warm(("cohort_warm", cfg, use, 1),
                           lambda: backend.warm(self._lanes(roots_arr[:1], 1)))
+        driver = LevelDriver(backend)
         parents, levels, per_root = [], [], []
         for r in roots_arr:
             if control is not None:
                 control.check()
             fault_point("dispatch", mode="scalar", kernels=kernels)
             lanes = self._lanes(np.asarray([r]), 1)
-            t0 = time.perf_counter()
-            parent, level, _rows, _timings = LevelDriver(backend).run(
-                lanes, None, control)
-            per_root.append(time.perf_counter() - t0)
+            parent, level, _rows, _timings = driver.run(lanes, None,
+                                                        control)
+            per_root.append(driver.run_s)
             parents.append(parent[0])
             levels.append(level[0])
-        per_root = np.asarray(per_root)
-        level = np.stack(levels)
-        return TraversalResult(roots_arr, np.stack(parents), level,
-                               _tree_depth(level), float(per_root.sum()),
-                               per_root, "fused", 1, e_und)
+        with trace.span("engine.assemble"):
+            per_root = np.asarray(per_root)
+            level = np.stack(levels)
+            return TraversalResult(roots_arr, np.stack(parents), level,
+                                   _tree_depth(level),
+                                   float(per_root.sum()), per_root, "fused",
+                                   1, e_und)
 
     # ------------------------------------------------------- stepper path --
 
@@ -418,25 +441,27 @@ class Engine:
         parents, levels, stats_all, timings, per_root = [], [], [], [], []
         for i, r in enumerate(roots_arr):
             cb = (lambda row, _i=i: on_level(_i, row)) if on_level else None
-            t0 = time.perf_counter()
             try:
                 parent, level, stats, extra = driver.run(int(r), cb, control)
             except (QueryCancelled, QueryDeadlineExceeded) as e:
                 # Per-root convention: completed roots + the aborted one.
                 e.per_level_stats = stats_all + [e.per_level_stats]
                 raise
-            per_root.append(time.perf_counter() - t0)
+            per_root.append(driver.run_s)
             parents.append(parent)
             levels.append(level)
             stats_all.append(stats)
             timings.append(extra)
-        per_root = np.asarray(per_root)
-        level = np.stack(levels)
-        return TraversalResult(roots_arr, np.stack(parents), level,
-                               _tree_depth(level), float(per_root.sum()),
-                               per_root, "stepper", n_parts,
-                               self.graph.num_undirected_edges,
-                               per_level_stats=stats_all, timings=timings)
+        with trace.span("engine.assemble"):
+            per_root = np.asarray(per_root)
+            level = np.stack(levels)
+            return TraversalResult(roots_arr, np.stack(parents), level,
+                                   _tree_depth(level),
+                                   float(per_root.sum()), per_root,
+                                   "stepper", n_parts,
+                                   self.graph.num_undirected_edges,
+                                   per_level_stats=stats_all,
+                                   timings=timings)
 
     # ------------------------------------------------------- sharded path --
 
@@ -480,13 +505,15 @@ class Engine:
         dt = time.perf_counter() - t_all
         per_root = (np.full(len(roots_new), dt / len(roots_new)) if batched
                     else np.asarray(per_root))
-        parents, levels = [], []
-        for parent_new, level_new, _rounds in outs:
-            parent, level = finalize_hybrid(plan, parent_new, level_new)
-            parents.append(parent)
-            levels.append(level)
-        level = np.stack(levels)
-        return TraversalResult(roots_arr, np.stack(parents), level,
-                               _tree_depth(level), float(per_root.sum()),
-                               per_root, "sharded", pkey[0],
-                               self.graph.num_undirected_edges)
+        with trace.span("engine.assemble"):
+            parents, levels = [], []
+            for parent_new, level_new, _rounds in outs:
+                parent, level = finalize_hybrid(plan, parent_new, level_new)
+                parents.append(parent)
+                levels.append(level)
+            level = np.stack(levels)
+            return TraversalResult(roots_arr, np.stack(parents), level,
+                                   _tree_depth(level),
+                                   float(per_root.sum()), per_root,
+                                   "sharded", pkey[0],
+                                   self.graph.num_undirected_edges)

@@ -15,6 +15,15 @@ tensor, calls `.cpu()` once, and unpacks on the host. Each level's work is
 timed up to a fence, `torch.cuda.synchronize(device)` on a GPU and nothing
 on the CPU.
 
+The driver's clock reads are those of its spans (`runtime.trace`): a
+search is `driver.run`; `init_s` is `driver.init`; a row's `seconds` is
+its `level.issue` (the host issuing the step) plus its `level.wait` (the
+fence), one pair for each phase of a split level; each `host_sync` is a
+`level.sync`; `agg_s` is `finalize`, the backend's finalize: the result's
+copy to the host, and under it `finalize.map`, the host mapping that
+`core.bfs.finalize` opens. The driver keeps the whole search's seconds,
+`driver.run`'s, as `run_s`.
+
 A backend, duck-typed:
 
     depth_bound: int                 # vertex count - 1
@@ -59,6 +68,7 @@ import torch.distributed as dist
 
 from repro_torch.core import bfs as B
 from repro_torch.core.hybrid_bfs import finalize_hybrid
+from repro_torch.runtime import trace
 from repro_torch.runtime.faults import fault_point
 
 
@@ -408,19 +418,20 @@ def host_sync(payload: dict) -> dict:
     tensor, copied to the host with a single `.cpu()`, and unpacked: scalars
     become Python ints/bools, vectors numpy int32/bool arrays.
     """
-    keys = list(payload)
-    flat = [payload[k].reshape(-1).to(torch.int64) for k in keys]
-    host = torch.cat(flat).cpu().numpy()
-    out, off = {}, 0
-    for k, t in zip(keys, flat):
-        n = t.numel()
-        part = host[off:off + n]
-        off += n
-        is_bool = payload[k].dtype == torch.bool
-        if payload[k].dim() == 0:
-            out[k] = bool(part[0]) if is_bool else int(part[0])
-        else:
-            out[k] = part.astype(bool if is_bool else np.int32)
+    with trace.span("level.sync"):
+        keys = list(payload)
+        flat = [payload[k].reshape(-1).to(torch.int64) for k in keys]
+        host = torch.cat(flat).cpu().numpy()
+        out, off = {}, 0
+        for k, t in zip(keys, flat):
+            n = t.numel()
+            part = host[off:off + n]
+            off += n
+            is_bool = payload[k].dtype == torch.bool
+            if payload[k].dim() == 0:
+                out[k] = bool(part[0]) if is_bool else int(part[0])
+            else:
+                out[k] = part.astype(bool if is_bool else np.int32)
     return out
 
 
@@ -429,6 +440,7 @@ class LevelDriver:
 
     def __init__(self, backend):
         self.backend = backend
+        self.run_s = None     # the last run's seconds (its `driver.run`)
 
     def run(self, root, on_level: Optional[Callable] = None,
             control: Optional[QueryControl] = None):
@@ -444,45 +456,53 @@ class LevelDriver:
         """
         b = self.backend
         split = hasattr(b, "exchange")
-        t_run = time.perf_counter()
-        state = b.init(root)
-        fence(b.device)
-        init_s = time.perf_counter() - t_run
-        stats: list = []
-        pre = host_sync(b.scalars(state))
-        while pre["nf"] > 0 and pre["cur"] < b.depth_bound:
-            fctx = dict(level=pre["cur"], **(getattr(b, "fault_ctx", None)
-                                             or {}))
-            try:
-                check_point(control, ("straggler", fctx), ("dispatch", fctx))
-            except (QueryCancelled, QueryDeadlineExceeded) as e:
-                e.per_level_stats = stats
-                raise
-            t0 = time.perf_counter()
-            if split:
-                work = b.compute(state, pre)
-                fence(b.device)
-                t1 = time.perf_counter()
-                state = b.exchange(state, work)
-            else:
-                state = b.step(state, pre)
+        with trace.span("driver.run") as run:
+            t_run = run.start
+            init = trace.span("driver.init", t=t_run)
+            state = b.init(root)
             fence(b.device)
-            t2 = time.perf_counter()
-            if not split:
-                t1 = t2           # one step: compute_s == seconds
-            post = host_sync(b.scalars(state))
-            row = dict(level=post["cur"], seconds=t2 - t0, compute_s=t1 - t0,
-                       exchange_s=t2 - t1, frontier_size=pre["nf"],
-                       frontier_edges=pre["mf"])
-            row.update(b.row(pre, post, t2 - t0))
-            stats.append(row)
-            if on_level:
-                on_level(row)
-            pre = post
-        t0 = time.perf_counter()
-        parent, level = b.finalize(state)
-        agg_s = time.perf_counter() - t0
-        overhead = (time.perf_counter() - t_run) - init_s - agg_s \
+            init_s = init.close() - t_run
+            stats: list = []
+            pre = host_sync(b.scalars(state))
+            while pre["nf"] > 0 and pre["cur"] < b.depth_bound:
+                fctx = dict(level=pre["cur"],
+                            **(getattr(b, "fault_ctx", None) or {}))
+                try:
+                    check_point(control, ("straggler", fctx),
+                                ("dispatch", fctx))
+                except (QueryCancelled, QueryDeadlineExceeded) as e:
+                    e.per_level_stats = stats
+                    raise
+                step = trace.span("level.issue", level=pre["cur"])
+                t0 = step.start
+                if split:
+                    work = b.compute(state, pre)
+                    step.split("level.wait")
+                    fence(b.device)
+                    t1 = step.split("level.issue")
+                    state = b.exchange(state, work)
+                else:
+                    state = b.step(state, pre)
+                step.split("level.wait")
+                fence(b.device)
+                t2 = step.close()
+                if not split:
+                    t1 = t2           # one step: compute_s == seconds
+                post = host_sync(b.scalars(state))
+                row = dict(level=post["cur"], seconds=t2 - t0,
+                           compute_s=t1 - t0, exchange_s=t2 - t1,
+                           frontier_size=pre["nf"], frontier_edges=pre["mf"])
+                row.update(b.row(pre, post, t2 - t0))
+                stats.append(row)
+                if on_level:
+                    on_level(row)
+                pre = post
+            fin = trace.span("finalize")
+            parent, level = b.finalize(state)
+            t_end = run.close(fin.close())
+        self.run_s = t_end - t_run
+        agg_s = t_end - fin.start
+        overhead = (t_end - t_run) - init_s - agg_s \
             - sum(r["seconds"] for r in stats)
         return parent, level, stats, dict(init_s=init_s, agg_s=agg_s,
                                           driver_overhead_s=max(overhead, 0.0))

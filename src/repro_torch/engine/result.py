@@ -55,7 +55,12 @@ class TraversalResult:
         exchange_s, seconds).
       timings: stepper backend only — one dict per root with out-of-loop
         phase times (init_s, agg_s, driver_overhead_s — the level loop's
-        host-side cost outside the timed device work).
+        host-side cost outside the timed device work). On every path the
+        same intervals are spans of `repro_torch.runtime.trace`:
+        `driver.init`, `finalize` (agg_s; its host mapping is the
+        `finalize.map` under it), and a
+        level's `level.issue` + `level.wait` (its seconds), under each
+        `driver.run` of the query's `engine.query`.
       edges_traversed: int64[B] undirected edges actually traversed per root
         (Graph500 accounting; the engine fills it from the reached set).
       batch_level_stats: batched fused (cohort) path only — ONE flat list of

@@ -80,7 +80,7 @@ from repro_torch.analysis.concurrency import ensure_installed as _ensure_sanitiz
 from repro_torch.analysis.concurrency import make_lock, make_timer
 from repro_torch.core.bfs import kernels_enabled
 from repro_torch.core.graph import Graph
-from repro_torch.engine.engine import Engine, QueryPlan
+from repro_torch.engine.engine import Engine, QueryPlan, query_bucket
 from repro_torch.engine.level_loop import (QueryCancelled, QueryControl,
                                      QueryDeadlineExceeded)
 from repro_torch.engine.partition_front import PartitionFront, PartitionLost
@@ -90,6 +90,7 @@ from repro_torch.engine.queueing import (BatchPopError, BoundedPriorityQueue,
                                    SessionUnavailable)
 from repro_torch.engine.result import TraversalResult
 from repro_torch.engine.session import GraphSession
+from repro_torch.runtime import trace
 from repro_torch.runtime.faults import fault_point
 
 _STREAM_END = object()
@@ -213,7 +214,7 @@ class _QueryItem:
     """Internal queue entry: the handle plus everything the worker needs."""
 
     __slots__ = ("handle", "roots", "plan", "stream", "client", "batch_key",
-                 "control", "attempts")
+                 "control", "attempts", "queued_at")
 
     def __init__(self, handle: QueryHandle, roots: np.ndarray,
                  plan: QueryPlan, stream: bool, client: Any,
@@ -225,6 +226,7 @@ class _QueryItem:
         self.client = client
         self.control = control
         self.attempts = 0           # retry dispatches consumed (RetryPolicy)
+        self.queued_at = handle.submitted_at  # reset when requeued
         # Streamed queries never coalesce (each runs its own stepper loop
         # with its own callback), so their key is unique by identity.
         self.batch_key = ("stream", id(handle)) if stream else ("batch", plan)
@@ -388,7 +390,7 @@ class BFSServer:
                 self._counters[name] = dict(served=0, rejected=0, batches=0,
                                             roots=0, edges_traversed=0,
                                             cancelled=0, expired=0,
-                                            busy_s=0.0,
+                                            busy_s=0.0, queue_wait_s=0.0,
                                             worker_crashes=0,
                                             worker_restarts=0, retries=0,
                                             dispatch_failures=0,
@@ -692,6 +694,7 @@ class BFSServer:
                         self._caps.release(it.client)
                         self._count(name, failed=1)
                 continue
+            self._taken(name, batch)
             try:
                 # Chaos hook: the worker "crashes" between popping a batch
                 # and dispatching it — the worst moment, queries in hand.
@@ -700,6 +703,16 @@ class BFSServer:
                 raise _WorkerCrash(batch, e, served) from e
             self._execute(name, eng, batch)
             served += 1
+
+    def _taken(self, name: str, batch: list) -> None:
+        """The worker took `batch` off the queue: one `server.queue_wait`
+        span a query, from its submit (or requeue) to now, and their sum
+        on the session's `queue_wait_s`."""
+        t = time.perf_counter()
+        for it in batch:
+            trace.record("server.queue_wait", it.queued_at, t,
+                         qid=it.handle.qid)
+        self._count(name, queue_wait_s=sum(t - it.queued_at for it in batch))
 
     def _recover_batch(self, name: str, batch: list,
                        cause: BaseException) -> None:
@@ -716,6 +729,7 @@ class BFSServer:
             if it.attempts < self.retry.max_retries:
                 it.attempts += 1
                 self._count(name, retries=1)
+                it.queued_at = time.perf_counter()
                 try:
                     self._queues[name].put(it, it.handle.priority, force=True)
                     continue
@@ -759,39 +773,42 @@ class BFSServer:
         if not live:
             return
         batch = live
-        t0 = time.perf_counter()
-        try:
-            results = self._dispatch(name, eng, batch)
-        except (QueryCancelled, QueryDeadlineExceeded) as e:
-            for it in batch:
-                self._abort(name, it, e)
-            self._count(name, busy_s=time.perf_counter() - t0)
-            return
-        except PartitionLost as e:
-            self._count(name, busy_s=time.perf_counter() - t0)
-            self._partition_lost(name, batch, e)
-            return
-        except Exception as e:  # noqa: BLE001 — every failure is handled
-            self._count(name, dispatch_failures=1,
-                        busy_s=time.perf_counter() - t0)
-            self._breakers[name].record_failure()
-            for it in batch:
-                self._handle_failure(name, eng, it, e)
-            return
-        self._breakers[name].record_success()
-        edges = 0
-        for it, res in zip(batch, results):
-            # Release the admission slot *before* waking the client: a
-            # client resubmitting the instant result() returns must not be
-            # bounced off its own just-completed query.
-            if not it.handle.done():
-                self._caps.release(it.client)
-                it.handle._finish(res)
-                edges += int(res.edges_traversed.sum())
-        self._count(name, served=len(batch), batches=1,
-                    roots=sum(len(it.roots) for it in batch),
-                    edges_traversed=edges,
-                    busy_s=time.perf_counter() - t0)
+        roots = sum(len(it.roots) for it in batch)
+        # The batch's busy time is its `server.dispatch` span.
+        with trace.span("server.dispatch", queries=len(batch), roots=roots,
+                        bucket=query_bucket(batch[0].plan.backend, roots,
+                                            True)) as busy:
+            try:
+                results = self._dispatch(name, eng, batch)
+            except (QueryCancelled, QueryDeadlineExceeded) as e:
+                for it in batch:
+                    self._abort(name, it, e)
+                self._count(name, busy_s=busy.close() - busy.start)
+                return
+            except PartitionLost as e:
+                self._count(name, busy_s=busy.close() - busy.start)
+                self._partition_lost(name, batch, e)
+                return
+            except Exception as e:  # noqa: BLE001 — every failure is handled
+                self._count(name, dispatch_failures=1,
+                            busy_s=busy.close() - busy.start)
+                self._breakers[name].record_failure()
+                for it in batch:
+                    self._handle_failure(name, eng, it, e)
+                return
+            self._breakers[name].record_success()
+            edges = 0
+            for it, res in zip(batch, results):
+                # Release the admission slot *before* waking the client: a
+                # client resubmitting the instant result() returns must not
+                # be bounced off its own just-completed query.
+                if not it.handle.done():
+                    self._caps.release(it.client)
+                    it.handle._finish(res)
+                    edges += int(res.edges_traversed.sum())
+            self._count(name, served=len(batch), batches=1, roots=roots,
+                        edges_traversed=edges,
+                        busy_s=busy.close() - busy.start)
 
     def _run(self, name: str, eng: Engine, roots, plan: QueryPlan, *,
              batched: bool = True, on_level=None, control=None):
@@ -884,6 +901,7 @@ class BFSServer:
                 self._retry_timers.pop(holder[0], None)
             if it.handle.done():
                 return
+            it.queued_at = time.perf_counter()
             try:
                 self._queues[name].put(it, it.handle.priority, force=True)
             except QueueClosed:
@@ -965,6 +983,9 @@ class BFSServer:
     def stats(self) -> dict:
         """Live counters per session + totals (served/rejected/batches/...,
         queue depth and high-water mark — the depth-bound proof).
+        `busy_s` sums the dispatches' seconds; `queue_wait_s` sums each
+        query's wait from submit (or requeue) to the worker's take, the
+        `server.queue_wait` spans (`runtime.trace`).
 
         Each session also reports its `runtime` block,
         `GraphSession.runtime_stats()`: builds by kind, warm-ups run, the

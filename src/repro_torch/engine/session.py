@@ -76,6 +76,7 @@ from repro_torch.core import partition as PT
 from repro_torch.core.bfs import DeviceGraph
 from repro_torch.core.graph import Graph
 from repro_torch.device import resolve_device
+from repro_torch.runtime import trace
 from repro_torch.runtime.artifact_cache import artifact_cache_for
 from repro_torch.runtime.config import RuntimeConfig, get_runtime_config
 from repro_torch.runtime.faults import ensure_installed as _ensure_faults
@@ -365,20 +366,23 @@ class GraphSession:
         return handle.value
 
     def _build_object(self, key, build: Callable[[], Any]) -> Any:
-        fault_point("compile", key=key)
-        got = build()
+        with trace.span("session.build", kind=key[0]):
+            fault_point("compile", key=key)
+            got = build()
         with self._stats_lock:
             self._builds[key[0]] = self._builds.get(key[0], 0) + 1
         return got
 
     def warm(self, key, run: Callable[[], Any]) -> None:
-        """Run `run()` (a warm-up search) once per `key`. Only a run that
-        returns is recorded: one that raises is tried again next time."""
+        """Run `run()` (a warm-up search) once per `key`, under the
+        `engine.warm` span. Only a run that returns is recorded: one that
+        raises is tried again next time."""
         if key in self._warmed:
             return
         with self._lock:
             if key not in self._warmed:
-                run()
+                with trace.span("engine.warm", kind=key[0]):
+                    run()
                 self._warmed.add(key)
 
     # --------------------------------------------------------- fingerprint --
@@ -514,8 +518,9 @@ class GraphSession:
     def _build_plan(self, key, build, fp, source: str) -> Callable:
         """Build plan `key` (under its `_Plan`'s lock); count it, and write
         its record after a query-path build."""
-        fault_point("compile", key=key)
-        fn = build()
+        with trace.span("session.build", kind=key[0]):
+            fault_point("compile", key=key)
+            fn = build()
         with self._stats_lock:
             self._plan_sources[key] = source
             if source == "prewarmed":

@@ -21,6 +21,10 @@ package's `runtime/`):
 * `faults` — the deterministic fault-injection switchboard (`fault_point`
   sites through the session, cache, engine, level driver and server; the
   seeded schedule grammar of `REPRO_FAULTS`), zero overhead when disabled.
+* `trace` — the span recorder: the search path's spans (query, driver,
+  level issue/wait/sync, finalize and its map, result assembly, the server's
+  queue wait and dispatch) in a bounded in-memory ring, on by default,
+  each also a `torch.profiler` range while a profiler records.
 
 `GraphSession` wires them together: a plan comes from the session's
 pre-warm pool, then the registry, and only then is built (and its record

@@ -71,7 +71,7 @@ def _counters(server, name):
     (which joins the workers) for final values: a worker counts a served
     query just after it wakes the client."""
     c = dict(server.stats()["sessions"][name])
-    for k in ("busy_s", "runtime", "queue_depth"):
+    for k in ("busy_s", "queue_wait_s", "runtime", "queue_depth"):
         c.pop(k, None)
     return c
 
