@@ -939,10 +939,10 @@ def batch_scalars(st: BatchState) -> dict:
 def finalize(st) -> tuple[np.ndarray, np.ndarray]:
     """Sentinels -> Graph500 conventions (-1 for unreached), host numpy.
     Works on a `BFSState` ([V]) or a `BatchState` ([B, V]). The mapping
-    after the copy to the host is the `finalize.map` span."""
-    parent = st.parent.cpu().numpy()
-    level = st.level.cpu().numpy()
+    runs on the state's device, into new tensors (the state is left as it
+    was), before the copy: the `finalize.map` span is its issue, and the
+    blocking `.cpu()` after it waits for it. The arrays stay int32."""
     with trace.span("finalize.map"):
-        parent = np.where(parent == INT_MAX, -1, parent)
-        level = np.where(level == INT_MAX, -1, level)
-        return parent.astype(np.int32), level.astype(np.int32)
+        parent, level = (torch.where(x == INT_MAX, -1, x)
+                         for x in (st.parent, st.level))
+    return parent.cpu().numpy(), level.cpu().numpy()

@@ -400,7 +400,7 @@ def make_hybrid_search(pg: PartitionedGraph,
 def finalize_hybrid(plan: PartitionPlan, parent_new, level_new):
     """Padded new-id results (tensors or numpy) -> original ids, Graph500
     conventions (-1), host numpy. The mapping after the copy to the host
-    is the `finalize.map` span, as in `bfs.finalize`."""
+    is the `finalize.map` span."""
     parent_new, level_new = (x.cpu().numpy() if isinstance(x, torch.Tensor)
                              else np.asarray(x)
                              for x in (parent_new, level_new))

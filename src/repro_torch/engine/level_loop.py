@@ -20,8 +20,9 @@ search is `driver.run`; `init_s` is `driver.init`; a row's `seconds` is
 its `level.issue` (the host issuing the step) plus its `level.wait` (the
 fence), one pair for each phase of a split level; each `host_sync` is a
 `level.sync`; `agg_s` is `finalize`, the backend's finalize: the result's
-copy to the host, and under it `finalize.map`, the host mapping that
-`core.bfs.finalize` opens. The driver keeps the whole search's seconds,
+copy to the host, and under it `finalize.map`, the issue of the mapping to
+Graph500 conventions that `core.bfs.finalize` runs on the device before
+the copy. The driver keeps the whole search's seconds,
 `driver.run`'s, as `run_s`.
 
 A backend, duck-typed:

@@ -57,8 +57,8 @@ class TraversalResult:
         phase times (init_s, agg_s, driver_overhead_s — the level loop's
         host-side cost outside the timed device work). On every path the
         same intervals are spans of `repro_torch.runtime.trace`:
-        `driver.init`, `finalize` (agg_s; its host mapping is the
-        `finalize.map` under it), and a
+        `driver.init`, `finalize` (agg_s; the issue of its device
+        mapping before the copy is the `finalize.map` under it), and a
         level's `level.issue` + `level.wait` (its seconds), under each
         `driver.run` of the query's `engine.query`.
       edges_traversed: int64[B] undirected edges actually traversed per root

@@ -23,7 +23,8 @@ The search path's spans, each a child of the one above it:
         level.wait      the level's device fence (level)
         level.sync      level_loop.host_sync, the per-level scalar copy
         finalize        the backend's finalize, the driver's `agg_s`
-          finalize.map  its host mapping to Graph500 conventions
+          finalize.map  its mapping to Graph500 conventions, issued on
+                        the device before the copy
       engine.assemble   result assembly after the last driver run
         engine.tree_depth, engine.edges_traversed
     server.dispatch     a worker batch's busy time, `busy_s` (queries,
