@@ -2,7 +2,10 @@
 
 * `ClosedLoop` ("closed"): one client calls `Engine.bfs` again the moment
   the last call returned, for `--seconds`; each query takes the next
-  `roots_per_query` search keys, `batched` as the file says.
+  `roots_per_query` search keys, `batched` as the file says. Given a
+  process group (a cell on more than one chip, rank 0 of its ranks), it
+  sends each query through the port's `PartitionFront` instead, one
+  partition a rank, with the configuration's `partition` block.
 * `OpenLoop` ("open"): queries arrive on a schedule made from the seed and
   go to `BFSServer.submit`; a waiter takes each `QueryHandle.result` in
   arrival order. The gaps are exponential at the file's `rate_qps`, the
@@ -67,10 +70,28 @@ def _query_cfg(cfg: dict, traffic: dict):
     return BFSConfig(**{**cfg.get("engine", {}), **traffic.get("query", {})})
 
 
-class ClosedLoop:
-    """One client, back to back, through `Engine.bfs`."""
+# A configuration's `partition` block: the knobs of `Engine.plan` and of
+# `HybridConfig`, under their names.
+PARTITION_KEYS = ("strategy", "hub_edge_fraction", "exchange", "coordinator")
 
-    def __init__(self, cfg: dict, traffic: dict, csr, seed: int, device):
+
+def partition_block(cfg: dict) -> dict:
+    """The configuration's `partition` block (empty without one); raises on
+    a key that is not one of `PARTITION_KEYS`."""
+    block = dict(cfg.get("partition", {}))
+    unknown = sorted(set(block) - set(PARTITION_KEYS))
+    if unknown:
+        raise ValueError(f"partition block: unknown keys {unknown}; want "
+                         f"some of {list(PARTITION_KEYS)}")
+    return block
+
+
+class ClosedLoop:
+    """One client, back to back, through `Engine.bfs`, or through
+    `PartitionFront.run` on rank 0 of `group`."""
+
+    def __init__(self, cfg: dict, traffic: dict, csr, seed: int, device,
+                 group=None):
         self.csr = csr
         self.device = torch.device(device)
         self.batched = bool(traffic["batched"])
@@ -83,19 +104,41 @@ class ClosedLoop:
                                 np.random.default_rng([seed, 2]))
         self.slice_s = float(traffic.get("trace_slice_s", 2.0))
         self.drain_s = float(traffic.get("drain_s", 60.0))
+        self.group = group
+        self.partition = partition_block(cfg) if group is not None else {}
         self.control = None
         self.spans = None            # trace.Spans of a traced run
         self.searches: list = []
         self.next = 0
         self.engine = None
+        self.front = None            # PartitionFront, with a group
+        self.plan = None             # its QueryPlan
 
     def setup(self) -> None:
-        """The port's engine, and one query of this cell's shape: the
+        """The port's engine (with a group: on the group, its front and the
+        partitioned plan), and one query of this cell's shape: the
         session's tiles, hash and kernels, and the first launches, all
         before the window. A warm-up that fails or outlives `drain_s` is
         reported and the run goes on: the window's queries will show it."""
         from repro_torch.engine import Engine, QueryControl
-        self.engine = Engine(_graph(self.csr), device=self.device)
+        if self.group is None:
+            self.engine = Engine(_graph(self.csr), device=self.device)
+        else:
+            import torch.distributed as dist
+
+            from repro_torch.core.hybrid_bfs import HybridConfig
+            from repro_torch.engine.partition_front import PartitionFront
+            p = self.partition
+            self.engine = Engine(_graph(self.csr), device=self.device,
+                                 group=self.group)
+            self.plan = self.engine.plan(
+                HybridConfig(bfs=self.qcfg, **{k: p[k] for k in
+                                               ("exchange", "coordinator")
+                                               if k in p}),
+                n_parts=dist.get_world_size(self.group),
+                strategy=p.get("strategy"),
+                hub_edge_fraction=p.get("hub_edge_fraction"))
+            self.front = PartitionFront(self.group, timeout=self.drain_s)
         self.control = QueryControl.with_timeout(self.drain_s)
         try:
             self._search(self.queries[0])
@@ -106,9 +149,19 @@ class ClosedLoop:
     def runtime_stats(self) -> dict:
         return self.engine.session.runtime_stats()
 
+    @property
+    def lost(self) -> bool:
+        """The partition group can serve no more (`PartitionFront.lost`,
+        set where it raised `PartitionLost`): the loop stops."""
+        return self.front is not None and self.front.lost is not None
+
     def _search(self, roots):
         t0 = time.perf_counter()
         try:
+            if self.front is not None:
+                return self.front.run(self.engine, "g", np.asarray(roots),
+                                      self.plan, batched=self.batched,
+                                      control=self.control)
             if self.batched:
                 return self.engine.bfs(np.asarray(roots), self.qcfg,
                                        batched=True, control=self.control)
@@ -133,30 +186,34 @@ class ClosedLoop:
         return dict(roots=roots, t0=t0, t1=t1, ok=res is not None)
 
     def window(self, seconds: float) -> tuple:
-        """Run until `seconds` have passed; (start, last completion). A
-        query still running `drain_s` past the close is given up (it
-        never came)."""
+        """Run until `seconds` have passed, or the partition group is lost
+        (at least one query); (start, last completion). A query still
+        running `drain_s` past the close is given up (it never came)."""
         from repro_torch.engine import QueryControl
         t0 = time.perf_counter()
         self.control = QueryControl(deadline=time.monotonic() + seconds
                                     + self.drain_s)
-        while time.perf_counter() - t0 < seconds:
+        while True:
             self.searches.append(self._one(keep=True))
+            if self.lost or time.perf_counter() - t0 >= seconds:
+                break
         self.control = None
         return t0, self.searches[-1]["t1"]
 
     def traced_slice(self) -> tuple:
         """The queries of one slice (at least one, `trace_slice_s` of
-        them), in order; `replay` runs the same again."""
+        them; none once the group is lost), in order; `replay` runs the
+        same again."""
         start = self.next
         t0 = time.perf_counter()
-        while self.next == start or time.perf_counter() - t0 < self.slice_s:
+        while not self.lost and (self.next == start or time.perf_counter()
+                                 - t0 < self.slice_s):
             self._one(keep=False)
         return start, self.next
 
     def replay(self, start: int, stop: int) -> None:
         self.next = start
-        while self.next < stop:
+        while self.next < stop and not self.lost:
             self._one(keep=False)
 
     @property
@@ -168,6 +225,9 @@ class ClosedLoop:
         return sum(1 for s in self.searches if not s["ok"])
 
     def close(self) -> None:
+        """End the followers' loops (with a group), then the session."""
+        if self.front is not None:
+            self.front.close(timeout=self.drain_s)
         self.engine.session.close()
         self.engine = None
 
@@ -327,8 +387,13 @@ class OpenLoop:
 LOOPS = {"closed": ClosedLoop, "open": OpenLoop}
 
 
-def make(cfg: dict, traffic: dict, csr, seed: int, device):
+def make(cfg: dict, traffic: dict, csr, seed: int, device, group=None):
+    """The traffic's load generator; with `group` (rank 0 of a cell on more
+    than one chip) the closed loop through the partition front (the
+    harness refuses any other loop there before a rank starts)."""
     loop = traffic["loop"]
     if loop not in LOOPS:
         raise ValueError(f"unknown loop {loop!r}; want one of {sorted(LOOPS)}")
-    return LOOPS[loop](cfg, traffic, csr, seed, device)
+    if group is None:
+        return LOOPS[loop](cfg, traffic, csr, seed, device)
+    return ClosedLoop(cfg, traffic, csr, seed, device, group)

@@ -4,8 +4,10 @@ A cell (`workloads` entry) names its configuration (the `configs` entry's
 `file`) and its traffic (`<bench>/traffic/<traffic>.json`); each metric,
 end-to-end or per-layer, is read by `<bench>/metrics/<name>.py`, whose
 `read(readings)` returns a number or None. `<bench>` is the first entry
-of `paths`. `problems()` lists what breaks the manifest's rules that a
-file can show by itself.
+of `paths`. A cell takes 1 or 4 chips; a configuration whose cells take
+more than one may hold a `partition` block (`drivers.PARTITION_KEYS`).
+`problems()` lists what breaks the manifest's rules that a file can show
+by itself.
 """
 from __future__ import annotations
 
@@ -60,7 +62,10 @@ def problems(m: Manifest) -> list:
     """What in the manifest breaks its rules: names and units, files that
     are missing, metrics whose `moves` a listed cell does not report,
     configurations without a cell, cells without an end-to-end metric
-    besides `setup_s` or without a per-layer one."""
+    besides `setup_s` or without a per-layer one, cells on other than 1
+    or 4 chips, more cells on 4 than max(1, a quarter of the cells), and
+    a `partition` block in a configuration no cell on more than one chip
+    uses."""
     d = m.data
     out = []
     metrics = d["end_to_end"] + d["per_layer"]
@@ -84,9 +89,21 @@ def problems(m: Manifest) -> list:
         out += [f"duplicate name {n!r}" for n in set(seen)
                 if seen.count(n) > 1]
     cells = {w["name"]: w for w in d["workloads"]}
+    out += [f"cell {w['name']} on {w['chips']} chips; want 1 or 4"
+            for w in d["workloads"] if w["chips"] not in (1, 4)]
+    four = sum(1 for w in d["workloads"] if w["chips"] == 4)
+    most = max(1, len(cells) // 4)
+    if four > most:
+        out.append(f"{four} cells on 4 chips; at most {most} of "
+                   f"{len(cells)} cells")
     for c in d["configs"]:
         if not (m.root / c["file"]).is_file():
             out.append(f"config file {c['file']} missing")
+        elif "partition" in m.config(c["name"]) and not any(
+                w["config"] == c["name"] and w["chips"] != 1
+                for w in d["workloads"]):
+            out.append(f"config {c['name']} has a partition block and no "
+                       "cell on more than one chip")
         if not any(w["config"] == c["name"] for w in d["workloads"]):
             out.append(f"config {c['name']} has no cell")
     for w in d["workloads"]:

@@ -25,9 +25,11 @@ def seconds(spans, name: str) -> float:
 
 
 def share(r, name: str, minus=None):
-    """Σ `name` (less Σ `minus`) over Σ `engine.query`, in %."""
+    """Σ `name` (less Σ `minus`) over Σ `engine.query`, in %; None where
+    the window holds no `name` span (a path that has no such span, as
+    the partitioned search has no `finalize` or `driver.init`)."""
     got = window(r)
-    if got is None:
+    if got is None or not any(s.name == name for s in got):
         return None
     query = seconds(got, "engine.query")
     if query <= 0:

@@ -8,7 +8,10 @@ answered is judged against it:
   (-1 where unreached), so coverage counts too;
 * `parent_faults`: the root not its own parent, an unreached vertex with a
   parent, or a reached vertex whose parent is not a neighbour one level up
-  (Graph500's tree rules, with the reference's levels).
+  (Graph500's tree rules, with the reference's levels);
+* `unanswered`: queries that never came back;
+* `ranks_failed` (a cell on more than one chip): ranks other than 0
+  that raised, wherever in the run.
 
 Every number has the limit 0: the guarantee is an exact BFS tree. The
 control (`control_search`) breaks it the way a search that ends one level
@@ -19,7 +22,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-LIMITS = {"level_mismatches": 0, "parent_faults": 0, "unanswered": 0}
+LIMITS = {"level_mismatches": 0, "parent_faults": 0, "unanswered": 0,
+          # a cell on more than one chip: followers that raised
+          "ranks_failed": 0}
 
 
 def plain_bfs(indptr: torch.Tensor, indices: torch.Tensor, root: int):

@@ -7,9 +7,11 @@ result's JSON object; the numbers compared with the reference, each
 beside its limit, are the last lines of standard error and the result's
 last key. Exits non-zero, with no result, without CUDA or with fewer
 devices than the cell asks for, when the port cannot be imported, or
-when JAX or the JAX package is loaded once the window has closed. The
-port's kernels build into `build/` of the checkout; caches of PyTorch's
-own go there too.
+when JAX or the JAX package is loaded once the window has closed, in
+this process or in any rank of a cell on more than one chip (exit 3).
+Such a cell runs one rank a card over NCCL (`harness.run`). The port's
+kernels build into `build/` of the checkout; caches of PyTorch's own go
+there too.
 """
 import time
 
@@ -48,8 +50,12 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
-    out = harness.run(ROOT, args.workload, args.seed, args.seconds,
-                      bool(args.trace), torch.device("cuda", 0), T_START)
+    try:
+        out = harness.run(ROOT, args.workload, args.seed, args.seconds,
+                          bool(args.trace), torch.device("cuda", 0), T_START)
+    except harness.ForbiddenLoaded as e:
+        print(f"loaded after the window: {e}", file=sys.stderr)
+        return 3
     try:
         card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",

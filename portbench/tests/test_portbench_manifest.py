@@ -3,6 +3,8 @@ mix and per-layer metric added from new files and entries alone."""
 import json
 import re
 
+import pytest
+
 import portbench_tiny
 from portbench.manifest import Manifest, problems
 
@@ -25,7 +27,7 @@ def test_manifest_shape():
     for x in d["end_to_end"]:
         assert 0 < x["bound"] <= 0.25
     for w in d["workloads"]:
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
     for c in d["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
@@ -56,6 +58,37 @@ def test_bad_names_and_moves_are_caught(tmp_path):
                  "bad name 'a,b'", "x.svc in g500-s24.cohort16, which does "
                  "not report query_p95_ms"):
         assert want in got, got
+
+
+def _two_chips(root, d):
+    d["workloads"][1]["chips"] = 2
+    return "cell g500-s24.cohort16 on 2 chips; want 1 or 4"
+
+
+def _too_many_on_four(root, d):
+    # 5 cells: one may take 4 chips, and the ranked one does
+    d["workloads"][0]["chips"] = 4
+    return "2 cells on 4 chips; at most 1 of 5 cells"
+
+
+def _unused_partition_block(root, d):
+    f = root / "portbench" / "configs" / "g500-s24.json"
+    f.write_text(json.dumps(dict(json.loads(f.read_text()),
+                                 partition={"strategy": "specialized"})))
+    return ("config g500-s24 has a partition block and no cell on more "
+            "than one chip")
+
+
+@pytest.mark.parametrize("break_rule", [_two_chips, _too_many_on_four,
+                                        _unused_partition_block],
+                         ids=lambda f: f.__name__.strip("_"))
+def test_chip_rules_are_caught(tmp_path, break_rule):
+    root = portbench_tiny.tiny_root(tmp_path)
+    d = json.loads((root / "BENCHMARK.json").read_text())
+    assert problems(Manifest(root)) == []   # a ranked cell is in the rules
+    want = break_rule(root, d)
+    (root / "BENCHMARK.json").write_text(json.dumps(d))
+    assert problems(Manifest(root)) == [want]
 
 
 def test_cell_added_from_new_files_only(tmp_path):

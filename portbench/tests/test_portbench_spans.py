@@ -64,3 +64,22 @@ def test_readers_find_nothing_without_the_recorder(root, monkeypatch):
     monkeypatch.undo()
     r.loop = "open"
     assert all(f(r) is None for f in read)
+
+
+def test_a_share_of_a_span_the_path_never_records_is_none():
+    # the partitioned search records no `finalize` and no `driver.init`:
+    # their shares find nothing, and copy (`finalize` less `finalize.map`)
+    # does not go below 0
+    from portbench.harness import Readings
+    from portbench.program_spans import share
+    from repro_torch.core import graph as G
+    from repro_torch.engine import Engine
+    eng = Engine(G.rmat(8, seed=1), device="cpu")
+    r = Readings("closed")
+    r.start = time.perf_counter()
+    eng.bfs([0, 1, 2])
+    r.close = time.perf_counter()
+    eng.session.close()
+    assert 0 < share(r, "finalize") <= 100
+    assert share(r, "no.such.span") is None
+    assert share(r, "no.such.span", minus="finalize") is None
